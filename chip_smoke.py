@@ -1,0 +1,326 @@
+#!/usr/bin/env python3
+"""Smoke run of permafrost_engine_tpu_torch on one NVIDIA GPU.
+
+Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
+device and ``nvcc`` (``$CUDA_HOME/bin``, ``PATH`` or ``/usr/local/cuda``);
+it exits non-zero, printing no result, without them or without the
+package beside it. Phases, each printing its own line:
+
+0. the device: card name and power limit (``nvidia-smi``), torch, CUDA
+   and nvcc versions;
+1. build both hand-written kernels (``csrc/*.cu``) from source;
+2. kernel K2 (flow-field integration) against its plain PyTorch version
+   at the move path's batch shapes on the 4x4-chunk battle map, with and
+   without seed costs: the fields must be bit-equal; both times;
+3. kernel K1 (HRVO select) against its plain version, exact and fan mode,
+   on a real 3x3 window of the 10,256-slot battle scene: bit-equal on
+   every moving row (which implies the parity tests' bounds: median error
+   0, every row within 1e-4, the same violations); both times;
+4. the slice: two 5,000-unit armies spawned and ordered across the battle
+   map (as ``bench.py``'s ``build_battle(5000, terrain=True)``, with no
+   war), 360 frames stepped; both kernels' launch counters (reset just
+   before) must be above 0, K1's equal to the movement substeps, no NaN,
+   and both armies closer to their goals; ms per frame and per substep.
+
+The script imports only the port (and ``tools/mapgen``) and fails if any
+``jax``/``jaxlib``/``flax`` module was loaded. Before the last line come one
+JSON object with per-kernel numbers and the card's name and power limit;
+the last is ``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/``.
+"""
+
+import importlib.metadata
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
+N_PER_SIDE = 5000
+FRAMES = 360
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms, CUDA events around `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def build_battle(dev):
+    """bench.py's build_battle(5000, terrain=True) without the war: the
+    4x4-chunk battle map, two factions, two 5,000-unit blocks (rng seed 0)
+    ordered to the far side."""
+    from permafrost_engine_tpu_torch import EngineConfig
+    from permafrost_engine_tpu_torch.game.engine import Engine
+    from mapgen import make_battle_map
+
+    cfg = EngineConfig(max_ents=2 * N_PER_SIDE + 256)
+    eng = Engine(cfg, device=dev)
+    eng.load_map_data(make_battle_map())
+    eng.add_faction(0)
+    eng.add_faction(1)
+    rng = np.random.default_rng(0)
+
+    def block(x0, z0, n, files, dx=4.0, dz=3.0):
+        fx = (np.arange(n) % files) * dx
+        fz = (np.arange(n) // files) * dz
+        x = x0 + fx + (rng.random(n) - 0.5)
+        z = z0 + fz + (rng.random(n) - 0.5)
+        return np.stack([x, z], 1).astype(np.float32)
+
+    ranged = rng.random(N_PER_SIDE) < 0.2
+    kw = dict(max_speed=20.0, is_ranged=ranged,
+              attack_range=np.where(ranged, 40.0, 5.0), vision_range=80.0,
+              hp=200.0)
+    a = eng.spawn_batch(block(200.0, 212.0, N_PER_SIDE, 25), faction=0, **kw)
+    b = eng.spawn_batch(block(820.0, 212.0, N_PER_SIDE, 25), faction=1, **kw)
+    goals = {"a": (820.0, 512.0), "b": (200.0, 512.0)}
+    check(eng.move(a, goals["a"]), "army a path request")
+    check(eng.move(b, goals["b"]), "army b path request")
+    return eng, a, b, goals
+
+
+def phase_k2(dev, cost):
+    """K2 vs plain at the path's shapes: the portal-graph build batch
+    (every portal span of layer 0 seeded), the same chunks as a union-field
+    install (random costs on the seeds), and a goal batch (one random
+    passable tile per chunk, all 16 chunks of all 12 layers)."""
+    from permafrost_engine_tpu_torch import COST_IMPASSABLE, FIELD_RES
+    from permafrost_engine_tpu_torch.nav.portals import find_portals, span_seed_batch
+    from permafrost_engine_tpu_torch.ops.flowfield import integrate_plain
+    from permafrost_engine_tpu_torch.ops.flowfield_cuda import integrate_cuda
+
+    rng = np.random.default_rng(0)
+    portals, _ = find_portals(cost[0], 4, 4)
+    pc, ps = span_seed_batch(portals, cost[0])
+    pv = np.where(ps, rng.random(ps.shape) * 500.0, 0.0).astype(np.float32)
+    chunks = cost.reshape(cost.shape[0], 4, FIELD_RES, 4, FIELD_RES
+                          ).transpose(0, 1, 3, 2, 4).reshape(-1, FIELD_RES, FIELD_RES)
+    goal = np.zeros(chunks.shape, bool)
+    for i, ch in enumerate(chunks):
+        rr, cc = np.nonzero(ch != COST_IMPASSABLE)
+        if rr.size:
+            j = rng.integers(rr.size)
+            goal[i, rr[j], cc[j]] = True
+    batches = {
+        "portal_spans": (pc, ps, None),
+        "union_install": (pc, ps, pv),
+        "goal_tiles": (np.ascontiguousarray(chunks), goal, None),
+    }
+    out = {}
+    for name, (c, s, v) in batches.items():
+        ct = torch.from_numpy(c).to(dev)
+        st = torch.from_numpy(s).to(dev)
+        vt = None if v is None else torch.from_numpy(v).to(dev)
+        got = integrate_cuda(ct, st, vt)
+        want = integrate_plain(ct, st, vt)
+        torch.cuda.synchronize()
+        finite = want < 1e30
+        check(torch.equal(finite, got < 1e30), f"K2 {name}: reachability")
+        err = float((got - want)[finite].abs().max()) if finite.any() else 0.0
+        check(torch.equal(got, want), f"K2 {name}: bit-equal (max err {err})")
+        ms = cuda_ms(lambda: integrate_cuda(ct, st, vt), 20)
+        plain_ms = cuda_ms(lambda: integrate_plain(ct, st, vt), 3, warmup=1)
+        out[name] = dict(chunks=int(c.shape[0]), max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms)
+        log(f"phase 2 K2 {name}: K={c.shape[0]} bit-equal max_abs_err={err} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    return out
+
+
+def phase_k1(dev):
+    """K1 vs plain on a real window: the battle scene 60 frames into the
+    march, K1's exact inputs at that substep."""
+    from permafrost_engine_tpu_torch.game.step import crowd_inputs
+    from permafrost_engine_tpu_torch.ops.crowd_cuda import (
+        hrvo_select_cuda, hrvo_select_plain)
+
+    eng, _a, _b, _g = build_battle(dev)
+    eng.step(60)
+    x = crowd_inputs(eng.cfg, eng.state)
+    args = x["hrvo_args"]
+    moving = x["moving_mask"]
+    rows = int(moving.sum())
+    check(rows > 0, "K1: moving rows in the window")
+    out = {}
+    for mode, exact in (("exact", True), ("fan", False)):
+        got = hrvo_select_cuda(*args, exact=exact)
+        want = hrvo_select_plain(*args, exact=exact)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K1 {mode}: finite")
+        err_m = torch.linalg.vector_norm(got - want, dim=1)[moving]
+        share = float((err_m < 1e-4).float().mean())
+        max_err = float(err_m.max())
+        check(torch.equal(got[moving], want[moving]),
+              f"K1 {mode}: bit-equal on moving rows (share within 1e-4 "
+              f"{share}, max err {max_err})")
+        ms = cuda_ms(lambda: hrvo_select_cuda(*args, exact=exact), 20)
+        plain_ms = cuda_ms(lambda: hrvo_select_plain(*args, exact=exact), 3,
+                           warmup=1)
+        out[mode] = dict(rows=rows, share_1e4=share, max_abs_err=max_err,
+                         ms=ms, plain_ms=plain_ms)
+        log(f"phase 3 K1 {mode}: N={args[0].shape[0]} C2={args[5].shape[1]} "
+            f"moving={rows} bit-equal share_within_1e-4={share:.6f} "
+            f"max_abs_err={max_err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    del eng
+    return out
+
+
+def phase_slice(dev):
+    from permafrost_engine_tpu_torch import FRAME_HZ
+    from permafrost_engine_tpu_torch.ops import crowd_cuda, flowfield_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flowfield_cuda.launches = 0
+    crowd_cuda.launches = 0
+    t0 = time.perf_counter()
+    eng, a, b, goals = build_battle(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    k2_move = flowfield_cuda.launches
+    chunks = eng.nav.stats["chunks_built"]
+    sa = torch.as_tensor([eng.uid_to_slot[u] for u in a], device=dev)
+    sb = torch.as_tensor([eng.uid_to_slot[u] for u in b], device=dev)
+
+    def mean_dist():
+        p = eng.state.ents.pos
+        ga = torch.tensor(goals["a"], device=dev)
+        gb = torch.tensor(goals["b"], device=dev)
+        return (float(torch.linalg.vector_norm(p[sa] - ga, dim=1).mean()),
+                float(torch.linalg.vector_norm(p[sb] - gb, dim=1).mean()))
+
+    d0 = mean_dist()
+    period = FRAME_HZ // eng.cfg.move_hz
+    frame_s, sub_s = [], []
+    for _ in range(FRAMES):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step(1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        frame_s.append(dt)
+        if eng.state.tick % period == 0:
+            sub_s.append(dt)
+    k1 = crowd_cuda.launches
+    k2 = flowfield_cuda.launches
+    d1 = mean_dist()
+    e = eng.state.ents
+    check(bool(torch.isfinite(e.pos).all() and torch.isfinite(e.vel).all()),
+          "no NaN in pos/vel")
+    check(k2 > 0, "K2 launched on the main path")
+    check(k1 == len(sub_s) and k1 > 0, f"K1 launches {k1} == substeps {len(sub_s)}")
+    check(d1[0] < d0[0] and d1[1] < d0[1], f"armies closed on goals {d0} -> {d1}")
+    res = dict(setup_s=setup_s, k2_launches_move=k2_move, chunks_built=chunks,
+               k1_launches=k1, k2_launches=k2, substeps=len(sub_s),
+               ms_per_frame=1e3 * sum(frame_s) / FRAMES,
+               ms_per_substep=1e3 * sum(sub_s) / len(sub_s),
+               ms_per_other_frame=1e3 * (sum(frame_s) - sum(sub_s))
+               / max(FRAMES - len(sub_s), 1),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               mean_goal_dist_before=d0, mean_goal_dist_after=d1)
+    log(f"phase 4 slice: {2 * N_PER_SIDE} units, {FRAMES} frames, "
+        f"setup_s={setup_s:.3f} k2_launches_during_move={k2_move} "
+        f"chunks_built={chunks} k1_launches={k1} substeps={len(sub_s)} "
+        f"ms_per_frame={res['ms_per_frame']:.4f} "
+        f"ms_per_substep={res['ms_per_substep']:.4f} "
+        f"max_memory_allocated={res['max_memory_allocated']} "
+        f"goal_dist a {d0[0]:.1f}->{d1[0]:.1f} b {d0[1]:.1f}->{d1[1]:.1f}")
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from permafrost_engine_tpu_torch import compile_nav_costs
+    from permafrost_engine_tpu_torch.ops import cuda_build
+    from mapgen import make_battle_map
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    nvcc_ver = subprocess.run([cuda_build.nvcc(), "--version"],
+                              capture_output=True, text=True, check=True
+                              ).stdout.strip().splitlines()[-1]
+    log(smi[0])
+    try:
+        triton_ver = importlib.metadata.version("triton")
+    except importlib.metadata.PackageNotFoundError:
+        triton_ver = "absent"
+    log(f"phase 0 device: {torch.cuda.get_device_name(0)} "
+        f"count={torch.cuda.device_count()} torch={torch.__version__} "
+        f"cuda={torch.version.cuda} nvcc=[{nvcc_ver}] triton={triton_ver}")
+
+    builds = {}
+    for name in ("integrate", "hrvo"):
+        t0 = time.perf_counter()
+        cuda_build.load(name)
+        builds[name] = time.perf_counter() - t0
+    log("phase 1 build: " + " ".join(f"{k}={v:.2f}s" for k, v in builds.items()))
+
+    cost, _ = compile_nav_costs(make_battle_map())
+    k2 = phase_k2(dev, cost)
+    k1 = phase_k1(dev)
+    sl = phase_slice(dev)
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(dict(device=smi[0], torch=torch.__version__,
+                       cuda=torch.version.cuda, nvcc=nvcc_ver, triton=triton_ver,
+                       build_s=builds, k2=k2, k1=k1, slice=sl,
+                       ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
+                  f, indent=1)
+    kernels = [
+        dict(name="K2 flow-field integration", route="cuda",
+             source="permafrost_engine_tpu_torch/csrc/integrate.cu",
+             replaces="permafrost_engine_tpu/ops/flowfield_pallas.py:110",
+             launches=sl["k2_launches"],
+             max_abs_err=max(v["max_abs_err"] for v in k2.values()),
+             ms=k2["portal_spans"]["ms"], plain_ms=k2["portal_spans"]["plain_ms"]),
+        dict(name="K1 HRVO select", route="cuda",
+             source="permafrost_engine_tpu_torch/csrc/hrvo.cu",
+             replaces="permafrost_engine_tpu/ops/crowd_pallas.py:315",
+             launches=sl["k1_launches"],
+             max_abs_err=max(v["max_abs_err"] for v in k1.values()),
+             ms=k1["exact"]["ms"], plain_ms=k1["exact"]["plain_ms"]),
+    ]
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+    check(not jax_mods, f"no JAX module imported: {jax_mods[:5]}")
+    log(json.dumps({"kernels": kernels}))
+    log(smi[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

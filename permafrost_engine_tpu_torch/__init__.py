@@ -1,0 +1,27 @@
+"""permafrost_engine_tpu_torch — the PyTorch/CUDA port of permafrost_engine_tpu.
+
+The same engine, module for module (``state/ ops/ nav/ game/`` mirror the
+JAX package's layout and names), written as plain PyTorch over tensors on
+an explicit device. The two Pallas kernels of the JAX package are
+hand-written CUDA C++ kernels for Hopper (``csrc/``), built with ``nvcc`` at
+first use and bound with ctypes; on CPU tensors every kernel wrapper runs
+its plain PyTorch version instead.
+
+The port never imports ``jax``. It shares the JAX package's JAX-free
+modules by import (``core/config.py``, ``core/events.py``,
+``core/sched.py``, ``assets/pfmap.py``, ``game/arrival.py``,
+``utils/native.py``); ``permafrost_engine_tpu/__init__.py`` imports only
+the config, so importing those pulls in no JAX.
+
+Ported so far: the move-order -> flow-field -> movement-substep path
+(``game/engine.Engine``: ``spawn_batch``, ``move``, ``step``).
+
+The shared names a caller of the port needs are re-exported here, so a
+driver script imports only this package.
+"""
+
+__version__ = "0.1.0"
+
+from permafrost_engine_tpu.assets.pfmap import compile_nav_costs  # noqa: F401
+from permafrost_engine_tpu.core.config import (  # noqa: F401
+    COST_IMPASSABLE, FIELD_RES, FRAME_HZ, MAX_NEIGHBOURS, EngineConfig)
