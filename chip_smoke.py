@@ -16,11 +16,22 @@ package beside it. Phases, each printing its own line:
    on a real 3x3 window of the 10,256-slot battle scene: bit-equal on
    every moving row (which implies the parity tests' bounds: median error
    0, every row within 1e-4, the same violations); both times;
-4. the slice: two 5,000-unit armies spawned and ordered across the battle
-   map (as ``bench.py``'s ``build_battle(5000, terrain=True)``, with no
-   war), 360 frames stepped; both kernels' launch counters (reset just
-   before) must be above 0, K1's equal to the movement substeps, no NaN,
-   and both armies closer to their goals; ms per frame and per substep.
+4. the march: two 5,000-unit armies spawned and ordered across the
+   battle map (as ``bench.py``'s ``build_battle(5000, terrain=True)``,
+   with no war), 360 frames stepped; both kernels' launch counters (reset
+   just before) must be above 0, K1's equal to the movement substeps, no
+   NaN, and both armies closer to their goals; ms per frame and per
+   substep;
+5. the war: the same scene with factions 0 and 1 at war (20% ranged, 80%
+   melee), stepped until the first death (which must come within 1,800
+   frames), then a 120-frame contact window timed frame by frame, then 60
+   frames with every substep bracketed by synchronizations. Fails unless
+   K1's launches equal the movement substeps, K2 launched, deaths, attack
+   starts and projectile hits occurred, each faction holds a chase field
+   and sees ``VISIBLE`` fog tiles, and no position, velocity or hp is NaN.
+   Prints ms per frame (march, contact), ms per substep kind at contact,
+   the plain whole-map seek build (ms and field count), the nav cadence's
+   counters and peak memory.
 
 The script imports only the port (and ``tools/mapgen``) and fails if any
 ``jax``/``jaxlib``/``flax`` module was loaded. Before the last line come one
@@ -29,6 +40,7 @@ the last is ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/``.
 """
 
+import concurrent.futures
 import importlib.metadata
 import json
 import os
@@ -43,6 +55,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 N_PER_SIDE = 5000
 FRAMES = 360
+WAR_MAX_FRAMES = 1800       # the first death must come within this
+CONTACT_FRAMES = 120
+SUBSTEP_FRAMES = 60
 
 
 def log(msg: str) -> None:
@@ -69,11 +84,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_battle(dev):
-    """bench.py's build_battle(5000, terrain=True) without the war: the
-    4x4-chunk battle map, two factions, two 5,000-unit blocks (rng seed 0)
-    ordered to the far side."""
-    from permafrost_engine_tpu_torch import EngineConfig
+def build_battle(dev, war: bool = False):
+    """bench.py's build_battle(5000, terrain=True): the 4x4-chunk battle
+    map, two factions (at war if `war`), two 5,000-unit blocks (rng seed 0,
+    20% ranged) ordered to the far side."""
+    from permafrost_engine_tpu_torch import DiplomacyState, EngineConfig
     from permafrost_engine_tpu_torch.game.engine import Engine
     from mapgen import make_battle_map
 
@@ -82,6 +97,8 @@ def build_battle(dev):
     eng.load_map_data(make_battle_map())
     eng.add_faction(0)
     eng.add_faction(1)
+    if war:
+        eng.set_diplomacy(0, 1, DiplomacyState.WAR)
     rng = np.random.default_rng(0)
 
     def block(x0, z0, n, files, dx=4.0, dz=3.0):
@@ -252,6 +269,143 @@ def phase_slice(dev):
     return res
 
 
+def _timed_substeps(times: dict):
+    """Wrap the tick's substep functions (looked up at call time) so each
+    call is bracketed by synchronizations; returns a restore function."""
+    from permafrost_engine_tpu_torch.game import step
+    from permafrost_engine_tpu_torch.ops import combat, projectile
+
+    targets = [(step, "movement_substep", "movement"),
+               (step, "combat_substep", "combat"),
+               (projectile, "projectile_substep", "projectile"),
+               (combat, "corpse_substep", "corpse"),
+               (step, "fog_substep", "fog")]
+    saved = []
+    for mod, attr, kind in targets:
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def timed(*args, _fn=fn, _kind=kind):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*args)
+            torch.cuda.synchronize()
+            times.setdefault(_kind, []).append(time.perf_counter() - t)
+            return out
+
+        setattr(mod, attr, timed)
+
+    def restore():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return restore
+
+
+def phase_war(dev):
+    """The battle at war through the port's Engine: march to first blood,
+    a timed contact window, then the per-substep split (see the module
+    docstring)."""
+    from permafrost_engine_tpu_torch import FRAME_HZ, FogState
+    from permafrost_engine_tpu_torch.ops import crowd_cuda, flowfield_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flowfield_cuda.launches = 0
+    crowd_cuda.launches = 0
+    t0 = time.perf_counter()
+    eng, _a, _b, _goals = build_battle(dev, war=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    period = FRAME_HZ // eng.cfg.move_hz
+    substeps = 0
+
+    def frame():
+        nonlocal substeps
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step(1)
+        torch.cuda.synchronize()
+        substeps += eng.state.tick % period == 0
+        return time.perf_counter() - t
+
+    def count(kind):
+        return sum(1 for k, _ in eng.events if k == kind)
+
+    march = []
+    while count("entity_death") == 0:
+        check(len(march) < WAR_MAX_FRAMES,
+              f"no death within {WAR_MAX_FRAMES} frames at war")
+        march.append(frame())
+    contact = [frame() for _ in range(CONTACT_FRAMES)]
+    sub_s: dict = {}
+    restore = _timed_substeps(sub_s)
+    try:
+        for _ in range(SUBSTEP_FRAMES):
+            frame()
+    finally:
+        restore()
+    k1, k2 = crowd_cuda.launches, flowfield_cuda.launches
+
+    e = eng.state.ents
+    check(bool(torch.isfinite(e.pos).all() and torch.isfinite(e.vel).all()
+               and not torch.isnan(e.hp).any()), "no NaN in pos/vel/hp")
+    check(k1 == substeps and k1 > 0, f"K1 launches {k1} == substeps {substeps}")
+    check(k2 > 0, "K2 launched across setup and the war")
+    ev = {k: count(k) for k in ("entity_death", "attack_start",
+                                "projectile_hit", "entity_removed")}
+    for k in ("entity_death", "attack_start", "projectile_hit"):
+        check(ev[k] > 0, f"{k} events at war: {ev}")
+    chase = eng.state.factions.chase_slot.cpu().numpy()
+    check(chase[0].max() >= 0 and chase[1].max() >= 0,
+          f"each faction holds a chase field: {chase[:2].tolist()}")
+    fog = eng.state.fog.state
+    visible = [int((fog[f] == FogState.VISIBLE).sum()) for f in (0, 1)]
+    check(min(visible) > 0, f"each faction sees VISIBLE fog tiles: {visible}")
+    check(eng._tile_height is not None, "the battle map has fog heights")
+
+    # the plain whole-map seek build, alone, on the live state
+    specs = [(f, lay, slot, None)
+             for (f, lay), slot in sorted(eng._chase_gslot.items())]
+    seek = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.state = eng.nav.build_enemy_seek_fields_batch(eng.state, specs)
+        torch.cuda.synchronize()
+        seek.append(time.perf_counter() - t)
+    res = dict(
+        setup_s=setup_s, march_frames=len(march),
+        ms_per_frame_march=1e3 * sum(march) / len(march),
+        ms_per_frame_contact=1e3 * sum(contact) / len(contact),
+        max_ms_frame_contact=1e3 * max(contact),
+        ms_per_substep_contact={k: 1e3 * sum(v) / len(v)
+                                for k, v in sub_s.items()},
+        substep_calls={k: len(v) for k, v in sub_s.items()},
+        seek_build_ms=[1e3 * x for x in seek], seek_build_fields=len(specs),
+        seek_batches=eng.nav.stats["seek_batches"],
+        seek_fields=eng.nav.stats["seek_fields"],
+        counters=dict(eng.counters), events=ev, k1_launches=k1,
+        k2_launches=k2, substeps=substeps, visible_tiles=visible,
+        chase_slots=chase[:2].tolist(),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    log(f"phase 5 war: {2 * N_PER_SIDE} units at war, setup_s={setup_s:.3f} "
+        f"first death after {len(march)} frames, "
+        f"ms_per_frame march={res['ms_per_frame_march']:.4f} "
+        f"contact={res['ms_per_frame_contact']:.4f} "
+        f"(max {res['max_ms_frame_contact']:.4f}), k1_launches={k1}="
+        f"substeps k2_launches={k2}, events={ev}")
+    log("phase 5 substeps at contact (ms, sync-bracketed): " + " ".join(
+        f"{k}={v:.4f}x{res['substep_calls'][k]}"
+        for k, v in res["ms_per_substep_contact"].items()))
+    log(f"phase 5 plain whole-map seek build: {len(specs)} fields, ms="
+        + ",".join(f"{x:.3f}" for x in res["seek_build_ms"])
+        + f"; batches={res['seek_batches']} fields={res['seek_fields']}")
+    log("phase 5 cadence counters (ms): " + " ".join(
+        f"{k}={v:.3f}" for k, v in res["counters"].items())
+        + f"; max_memory_allocated={res['max_memory_allocated']}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -278,36 +432,42 @@ def main() -> int:
         f"count={torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda} nvcc=[{nvcc_ver}] triton={triton_ver}")
 
-    builds = {}
-    for name in ("integrate", "hrvo"):
-        t0 = time.perf_counter()
-        cuda_build.load(name)
-        builds[name] = time.perf_counter() - t0
+    # one nvcc per source, all started together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        futures = {name: pool.submit(cuda_build.load, name)
+                   for name in ("integrate", "hrvo")}
+        for fut in futures.values():
+            fut.result()
+    builds = {name: cuda_build.BUILD_INFO[name][0]
+              if name in cuda_build.BUILD_INFO else 0.0 for name in futures}
+    builds["wall"] = time.perf_counter() - t0
     log("phase 1 build: " + " ".join(f"{k}={v:.2f}s" for k, v in builds.items()))
 
     cost, _ = compile_nav_costs(make_battle_map())
     k2 = phase_k2(dev, cost)
     k1 = phase_k1(dev)
     sl = phase_slice(dev)
+    war = phase_war(dev)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(device=smi[0], torch=torch.__version__,
                        cuda=torch.version.cuda, nvcc=nvcc_ver, triton=triton_ver,
-                       build_s=builds, k2=k2, k1=k1, slice=sl,
+                       build_s=builds, k2=k2, k1=k1, slice=sl, war=war,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
     kernels = [
         dict(name="K2 flow-field integration", route="cuda",
              source="permafrost_engine_tpu_torch/csrc/integrate.cu",
              replaces="permafrost_engine_tpu/ops/flowfield_pallas.py:110",
-             launches=sl["k2_launches"],
+             launches=sl["k2_launches"] + war["k2_launches"],
              max_abs_err=max(v["max_abs_err"] for v in k2.values()),
              ms=k2["portal_spans"]["ms"], plain_ms=k2["portal_spans"]["plain_ms"]),
         dict(name="K1 HRVO select", route="cuda",
              source="permafrost_engine_tpu_torch/csrc/hrvo.cu",
              replaces="permafrost_engine_tpu/ops/crowd_pallas.py:315",
-             launches=sl["k1_launches"],
+             launches=sl["k1_launches"] + war["k1_launches"],
              max_abs_err=max(v["max_abs_err"] for v in k1.values()),
              ms=k1["exact"]["ms"], plain_ms=k1["exact"]["plain_ms"]),
     ]

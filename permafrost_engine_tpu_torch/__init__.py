@@ -13,8 +13,11 @@ modules by import (``core/config.py``, ``core/events.py``,
 ``utils/native.py``); ``permafrost_engine_tpu/__init__.py`` imports only
 the config, so importing those pulls in no JAX.
 
-Ported so far: the move-order -> flow-field -> movement-substep path
-(``game/engine.Engine``: ``spawn_batch``, ``move``, ``step``).
+Ported so far: the move-order -> flow-field -> movement-substep path and
+the war path (``game/engine.Engine``: ``spawn_batch``, ``move``,
+``set_diplomacy``, ``step``): combat, projectiles, corpses, fog of war
+(with the height-aware shadowcaster), per-(faction, layer) chase fields
+and the 60-frame nav cadence.
 
 The shared names a caller of the port needs are re-exported here, so a
 driver script imports only this package.
@@ -24,4 +27,5 @@ __version__ = "0.1.0"
 
 from permafrost_engine_tpu.assets.pfmap import compile_nav_costs  # noqa: F401
 from permafrost_engine_tpu.core.config import (  # noqa: F401
-    COST_IMPASSABLE, FIELD_RES, FRAME_HZ, MAX_NEIGHBOURS, EngineConfig)
+    COST_IMPASSABLE, FIELD_RES, FRAME_HZ, MAX_NEIGHBOURS, DiplomacyState,
+    EngineConfig, FogState)

@@ -1,4 +1,4 @@
-"""The simulation tick: the 60 Hz frame counter and the movement substep.
+"""The simulation tick: the 60 Hz frame counter and its substeps.
 
 Port of ``permafrost_engine_tpu/game/step.py``. The reference runs
 decimated event rates off a 60 Hz timer (ref: src/game/timer_events.c:
@@ -11,8 +11,12 @@ flow-field and LOS sampling -> boids preferred velocity -> HRVO solve
 (kernel K1, ``ops/crowd_cuda.hrvo_select``) -> de-penetration and contact
 projection -> integration and state machine -> blocker restamp.
 
-Not ported yet (``make_tick`` runs only movement): the combat substep, the
-projectile and corpse substeps, fog of war and the skinning stage.
+The other substeps follow the JAX tick's order and rates: combat (10 Hz,
+``ops/combat.py``; ranged attackers spawn projectiles), projectiles (30
+Hz, ``ops/projectile.py``), corpses (1 Hz) and fog (``cfg.fog_hz``,
+``ops/fog.py``; the shadowcaster when the map has a ``tile_height``). The
+skinning stage is not ported (``cfg.skin_joints > 0`` raises in
+``init_state``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ from permafrost_engine_tpu.core.config import (
     NUM_FOOTPRINTS,
 )
 from permafrost_engine_tpu_torch.ops import boids, grid
+from permafrost_engine_tpu_torch.ops import combat as combat_ops
+from permafrost_engine_tpu_torch.ops import fog as fog_ops
 from permafrost_engine_tpu_torch.ops import integrate as integ_ops
+from permafrost_engine_tpu_torch.ops import projectile as proj_ops
 from permafrost_engine_tpu_torch.ops import velocity as vel_ops
 from permafrost_engine_tpu_torch.ops.crowd_cuda import hrvo_select
 from permafrost_engine_tpu_torch.state.schema import GameState, TickDeltas
@@ -46,10 +53,7 @@ def _has(flags: torch.Tensor, bit: EntityFlags) -> torch.Tensor:
 def _grow3(x: torch.Tensor) -> torch.Tensor:
     """3x3 max dilation of a non-negative [H, W] grid (zero outside), as
     two 3-wide separable passes (the JAX reduce_window max)."""
-    p = torch.nn.functional.pad(x, (0, 0, 1, 1))
-    x = torch.maximum(torch.maximum(p[:-2], p[1:-1]), p[2:])
-    p = torch.nn.functional.pad(x, (1, 1, 0, 0))
-    return torch.maximum(torch.maximum(p[:, :-2], p[:, 1:-1]), p[:, 2:])
+    return fog_ops.max3_cols(fog_ops.max3_rows(x))
 
 
 def _restamp_blockers(cfg: EngineConfig, ents, nav):
@@ -245,18 +249,60 @@ def merge_deltas(a: TickDeltas, b: TickDeltas) -> TickDeltas:
     )
 
 
-def make_tick(cfg: EngineConfig):
+def combat_substep(cfg: EngineConfig, state: GameState, deltas: TickDeltas):
+    """The 10 Hz combat substep; ranged attackers loose a projectile at
+    their target's current position."""
+    state, deltas, attack_now = combat_ops.combat_substep(cfg, state, deltas)
+    ents = state.ents
+    ti = torch.clamp(ents.target, 0, cfg.max_ents - 1).long()
+    proj_ops.spawn_projectiles(
+        cfg, state.projectiles, attack_now & ents.is_ranged, ents.pos,
+        ents.pos[ti], ents.faction, ents.base_dmg)
+    return state, deltas
+
+
+def fog_substep(cfg: EngineConfig, state: GameState, tile_height=None):
+    """Recompute every faction's fog plane (``tile_height`` f32[TH, TW]
+    selects the height-aware shadowcaster)."""
+    ents = state.ents
+    state.fog.state = fog_ops.update_fog(
+        state.fog.state, state.fog.enabled, ents.pos,
+        ents.alive & (ents.hp > 0.0), ents.faction, ents.vision_range,
+        tile_height, tiles_h=cfg.tiles_h, tiles_w=cfg.tiles_w,
+        max_factions=cfg.max_factions)
+    return state
+
+
+def make_tick(cfg: EngineConfig, tile_height=None):
     """The 60 Hz tick ``(state, acc) -> (state, acc)``: advances the host
-    frame counter and runs the movement substep every
-    ``FRAME_HZ // cfg.move_hz`` frames, folding its events into the
-    accumulator `acc` in place (merging a frame's empty deltas is the
-    identity, so frames without a substep touch nothing)."""
+    frame counter and runs, in the JAX tick's order, movement every
+    ``FRAME_HZ // cfg.move_hz`` frames, combat every ``FRAME_HZ //
+    cfg.combat_hz``, projectiles every 2 (30 Hz), corpses every 60 (1 Hz)
+    and fog every ``FRAME_HZ // cfg.fog_hz``. Substeps fold their events
+    into the accumulator `acc` in place (merging a frame's empty deltas is
+    the identity, so a frame without a substep touches nothing).
+    `tile_height` (f32[TH, TW] on the state's device, or None) makes fog
+    height-aware."""
     move_period = FRAME_HZ // cfg.move_hz
+    combat_period = FRAME_HZ // cfg.combat_hz
+    proj_period = FRAME_HZ // 30
+    corpse_period = FRAME_HZ
+    fog_period = max(FRAME_HZ // cfg.fog_hz, 1)
 
     def tick(state: GameState, acc: TickDeltas):
         state.tick += 1
-        if state.tick % move_period == 0:
+        t = state.tick
+        if t % move_period == 0:
             state, acc = movement_substep(cfg, state, acc)
+        if t % combat_period == 0:
+            state, acc = combat_substep(cfg, state, acc)
+        if t % proj_period == 0:
+            state, acc = proj_ops.projectile_substep(cfg, state, acc)
+        if t % corpse_period == 0:
+            state, acc, expired = combat_ops.corpse_substep(cfg, state, acc)
+            acc.corpse_expired = acc.corpse_expired | expired
+        if t % fog_period == 0:
+            state = fog_substep(cfg, state, tile_height)
         return state, acc
 
     return tick

@@ -15,12 +15,19 @@ src/navigation/fieldcache.c):
 Field keys are (layer, chunk, seed signature), so flocks sharing a goal or
 portal reuse fields (ref: fieldcache.h:53-167).
 
+Whole-map enemy-seek fields (the per-(faction, layer) chase fields combat
+chasers follow, ref: field.c:1209-1678) are built in one batch per
+refresh: ``build_enemy_seek_fields_batch``. Their 256x256 integration is
+an XLA op in the JAX package, not a Pallas kernel, and K2 only takes 64x64
+chunks in shared memory, so it runs the plain ``integrate_plain`` on every
+device (a whole-map kernel is queued in ROADMAP.md).
+
 The JAX version pads every batch to a small fixed set of sizes and
-pre-compiles them (``prewarm``, ``batch_buckets``): that exists to avoid
-remote XLA compiles. Eager PyTorch has no compile per shape, so batches run
-at their own size. Not ported yet: whole-map seek/chase/surround fields,
-formation cell fields, structure stamps and their incremental portal-graph
-updates.
+pre-compiles them (``prewarm``, ``batch_buckets``, the seek batch's
+sentinel spec): that exists to avoid remote XLA compiles. Eager PyTorch has
+no compile per shape, so batches run at their own size. Not ported yet:
+surround fields, formation cell fields, structure stamps and their
+incremental portal-graph updates.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from permafrost_engine_tpu.core.config import (
     COST_IMPASSABLE,
+    DiplomacyState,
     EngineConfig,
     FIELD_RES,
     INF_COST,
@@ -41,6 +49,7 @@ from permafrost_engine_tpu.core.config import (
 )
 from permafrost_engine_tpu_torch.nav import portals as pt
 from permafrost_engine_tpu_torch.ops import flowfield as ff
+from permafrost_engine_tpu_torch.ops.flowfield import integrate_plain
 from permafrost_engine_tpu_torch.ops.flowfield_cuda import integrate
 from permafrost_engine_tpu_torch.ops.islands import label_islands
 from permafrost_engine_tpu_torch.state.schema import GameState
@@ -114,7 +123,8 @@ class NavService:
         self._edge_cache: dict[int, tuple[int, frozenset, frozenset]] = {}
         self.stats = {"hits": 0, "misses": 0, "requests": 0, "failed": 0,
                       "retargeted": 0, "blocked_edges": 0,
-                      "blocker_replans": 0, "chunks_built": 0}
+                      "blocker_replans": 0, "chunks_built": 0,
+                      "seek_batches": 0, "seek_fields": 0}
 
     # -- portal graphs and islands -------------------------------------------
 
@@ -703,6 +713,69 @@ class NavService:
             state.fields.los[slots] = tiles[flat]
 
         return self._push_tables(state)
+
+    # -- whole-map fields (enemy-seek / chase) ------------------------------------
+
+    def build_enemy_seek_fields_batch(self, state: GameState, specs: list
+                                      ) -> GameState:
+        """Rebuild many whole-map enemy-seek fields at once: `specs` are
+        (faction, layer, global slot, flock id or None). Each field flows
+        toward every living unit at war with `faction`, over `layer`'s
+        static costs (enemies stand on blocked tiles, so blockers are
+        ignored); one seed scatter, one batched integration, one slab
+        write. A flock id points that flock's ``global_slot`` at the field;
+        None writes the slab only (the per-faction chase fields)."""
+        if not specs:
+            return state
+        cfg, dev = self.cfg, self.device
+        h, w = cfg.field_h, cfg.field_w
+        facs = torch.as_tensor([sp[0] for sp in specs], dtype=torch.long,
+                               device=dev)
+        ents = state.ents
+        war = state.factions.diplomacy == DiplomacyState.WAR
+        fac_c = torch.clamp(ents.faction, 0, war.shape[0] - 1).long()
+        enemy = (ents.alive & (ents.hp > 0))[None, :] & war[facs][:, fac_c]
+        c = torch.clamp((ents.pos[:, 0] / NAV_TILE_SIZE).to(torch.int32), 0, w - 1)
+        r = torch.clamp((ents.pos[:, 1] / NAV_TILE_SIZE).to(torch.int32), 0, h - 1)
+        tgt = torch.where(enemy, (r * w + c)[None, :], h * w).long()   # [K, N]
+        seeds = torch.zeros((len(specs), h * w + 1), dtype=torch.bool,
+                            device=dev)
+        seeds.scatter_(1, tgt, True)
+        return self._install_global(
+            state, [sp[1] for sp in specs], [sp[2] for sp in specs],
+            seeds[:, :-1].reshape(len(specs), h, w), [sp[3] for sp in specs])
+
+    def build_enemy_seek_field(self, state: GameState, faction: int,
+                               layer: int, slot: int,
+                               flock_id: int | None = None) -> GameState:
+        """One whole-map enemy-seek field (a batch of one)."""
+        return self.build_enemy_seek_fields_batch(
+            state, [(faction, layer, slot, flock_id)])
+
+    def _install_global(self, state: GameState, layers, slots, seeds,
+                        flock_ids) -> GameState:
+        """Integrate whole-map seed masks bool[K, H, W] over their layers'
+        costs, write the flow directions into the global slab `slots`, and
+        point each non-None flock id's ``global_slot`` at its field."""
+        cfg, dev = self.cfg, self.device
+        lay = torch.as_tensor(layers, dtype=torch.long, device=dev)
+        cost = state.nav.cost_base[lay]
+        # the JAX package runs this integration on XLA (ff.integrate), not
+        # in a Pallas kernel, and K2 holds only 64x64 chunks in shared
+        # memory: the plain version, on every device
+        integ = integrate_plain(cost, seeds,
+                                max_iters=4 * max(cfg.field_h, cfg.field_w))
+        sl = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        state.fields.global_flow[sl] = ff.flow_dirs(integ, cost)
+        owned = [(f, s) for f, s in zip(flock_ids, slots) if f is not None]
+        if owned:
+            state.flocks.global_slot[torch.as_tensor(
+                [f for f, _ in owned], dtype=torch.long, device=dev)] = \
+                torch.as_tensor([s for _, s in owned], dtype=torch.int32,
+                                device=dev)
+        self.stats["seek_batches"] += 1
+        self.stats["seek_fields"] += len(slots)
+        return state
 
     def _push_tables(self, state: GameState) -> GameState:
         """Copy both host slot tables into the device flock table."""

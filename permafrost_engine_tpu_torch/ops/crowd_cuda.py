@@ -16,8 +16,8 @@ fault the JAX code carries, kept for parity).
 
 Rounding: XLA on CPU contracts multiply-adds into FMAs, so the JAX
 reference builds its candidates with single-rounding FMAs. The kernel
-(``__fmaf_rn``) and the plain version (``_fma``) contract exactly the same
-candidate expressions (the rotated fan, the edge projections, the free
+(``__fmaf_rn``) and the plain version (``ops/rounding.fma``) contract exactly
+the same candidate expressions (the rotated fan, the edge projections, the free
 projections and the intersection points) and nothing else, which makes
 more than half of the picks bit-equal to both JAX paths on the CPU test
 scenes; every other expression rounds once per operation in both.
@@ -32,6 +32,7 @@ import torch
 
 from permafrost_engine_tpu.core.config import MAX_NEIGHBOURS
 from permafrost_engine_tpu_torch.ops import cuda_build
+from permafrost_engine_tpu_torch.ops.rounding import fma
 
 _EPS = 1e-6
 _BIG = 1e9
@@ -51,15 +52,6 @@ _bound = None
 
 def _f32(vals, dev):
     return torch.tensor(vals, dtype=torch.float32, device=dev)
-
-
-def _fma(a, b, c):
-    """f32 a * b + c rounded once, like CUDA's __fmaf_rn: the f64 product
-    of two f32 values is exact, so only the final add rounds (a double
-    rounding through f64 is possible in principle and has never been
-    observed to matter)."""
-    a, b, c = torch.broadcast_tensors(a, b, c)
-    return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
 def hrvo_select_plain(pos, vel, radius, vpref, max_speed, cand_pos, cand_vel,
@@ -142,13 +134,13 @@ def hrvo_select_plain(pos, vel, radius, vpref, max_speed, cand_pos, cand_vel,
     scales = _f32(_SCALES, dev)
     ca = _f32([math.cos(math.radians(d)) for d in _ANGLES_DEG], dev)
     sa = _f32([math.sin(math.radians(d)) for d in _ANGLES_DEG], dev)
-    rotx = _fma(vpx, ca, -(vpz * sa))
-    rotz = _fma(vpx, sa, vpz * ca)
+    rotx = fma(vpx, ca, -(vpz * sa))
+    rotz = fma(vpx, sa, vpz * ca)
 
     def proj(ex, ez):
         ex, ez, pax, paz = ex[:, :KP], ez[:, :KP], ax[:, :KP], az[:, :KP]
-        d = torch.clamp(_fma(vpz - paz, ez, (vpx - pax) * ex), min=0.0)
-        return _fma(ex, d, pax), _fma(ez, d, paz)
+        d = torch.clamp(fma(vpz - paz, ez, (vpx - pax) * ex), min=0.0)
+        return fma(ex, d, pax), fma(ez, d, paz)
 
     plx, plz = proj(lx, lz)
     prx, prz = proj(rx, rz)
@@ -172,14 +164,14 @@ def hrvo_select_plain(pos, vel, radius, vpref, max_speed, cand_pos, cand_vel,
         upper = torch.triu(torch.ones(r2, r2, dtype=torch.bool, device=dev), 1)
         ok = (nzd & (t1 >= 0.0) & (t2 >= 0.0) & rv[:, :, None]
               & rv[:, None, :] & upper)
-        xs.append(torch.where(ok, _fma(d1x, t1, p1x), vpx[:, :, None]
+        xs.append(torch.where(ok, fma(d1x, t1, p1x), vpx[:, :, None]
                               ).reshape(n, -1))
-        zs.append(torch.where(ok, _fma(d1z, t1, p1z), vpz[:, :, None]
+        zs.append(torch.where(ok, fma(d1z, t1, p1z), vpz[:, :, None]
                               ).reshape(n, -1))
-        wl = _fma(vpz, lz, vpx * lx)
-        wr = _fma(vpz, rz, vpx * rx)
-        xs += [_fma(lx, wl, ax), _fma(rx, wr, ax)]
-        zs += [_fma(lz, wl, az), _fma(rz, wr, az)]
+        wl = fma(vpz, lz, vpx * lx)
+        wr = fma(vpz, rz, vpx * rx)
+        xs += [fma(lx, wl, ax), fma(rx, wr, ax)]
+        zs += [fma(lz, wl, az), fma(rz, wr, az)]
     cx = torch.cat(xs, 1)
     cz = torch.cat(zs, 1)
     if not exact:

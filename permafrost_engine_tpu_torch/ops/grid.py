@@ -8,8 +8,8 @@ sort and the ranks fix which entities overflow a full bucket, and the
 buckets match the JAX version's exactly. Window queries gather the 3x3
 neighbourhood's bucket rows per query.
 
-``knn_query`` and ``nearest_match`` (combat target acquisition) are not
-on the ported path.
+``nearest_match`` is combat's exact nearest-target query. ``knn_query`` is
+not on the ported path.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import dataclasses
 import torch
 
 from permafrost_engine_tpu.core.config import SPATIAL_CELL_SIZE
+from permafrost_engine_tpu_torch.ops.rounding import fma, sqrt
 
 
 @dataclasses.dataclass(eq=False)
@@ -177,3 +178,48 @@ def contact_candidates(grid: ContactGrid, query_pos, query_slot):
     cand = pk[..., -1].to(torch.int32)
     valid = inb & (cand >= 0) & (cand != query_slot[:, None])
     return cand, pk[..., 0:2], pk[..., 2:-1], valid
+
+
+def nearest_match(query_pos, query_mask, target_pos, target_mask, pair_ok, *,
+                  block: int = 1024):
+    """Exact nearest target per queryer under a pair predicate, by brute
+    force over blocks of targets (peak memory [Q, block]); ref: combat.c
+    target acquisition. Port of JAX ``grid.nearest_match``.
+
+    ``pair_ok = (q_code i32[Q], ok_matrix bool[C, C], t_code i32[N])``. The
+    JAX code packs rows of the matrix into u32 bit masks to avoid a TPU
+    gather and tests ``ok_matrix[t_code, q_code]`` (its docstring names the
+    transpose; every caller passes the symmetric diplomacy table); here the
+    same entry is a plain ``[C, C]`` table lookup. Each block keeps its first
+    minimum and a later block must be strictly nearer, so the result is the
+    global first-index argmin whatever ``block`` is. The squared distance
+    is ``fma(dz, dz, dx * dx)``, the contraction XLA makes on the CPU,
+    and its root is correctly rounded (``ops/rounding.py``).
+
+    Returns (idx i32[Q] nearest valid target or -1, dist f32[Q], inf where
+    there is none)."""
+    q_code, ok_matrix, t_code = pair_ok
+    c = ok_matrix.shape[0]
+    dev = query_pos.device
+    q, n = query_pos.shape[0], target_pos.shape[0]
+    qc = torch.clamp(q_code, 0, c - 1).long()
+    tc = torch.clamp(t_code, 0, c - 1).long()
+    qx, qz = query_pos[:, 0:1], query_pos[:, 1:2]
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    best_d2 = torch.full((q,), float("inf"), dtype=torch.float32, device=dev)
+    best_i = torch.full((q,), -1, dtype=torch.int64, device=dev)
+    for s in range(0, n, block):
+        bpos = target_pos[s:s + block]
+        dx = qx - bpos[None, :, 0]
+        dz = qz - bpos[None, :, 1]
+        ok = target_mask[None, s:s + block] & ok_matrix[tc[None, s:s + block],
+                                                        qc[:, None]]
+        d2 = torch.where(ok, fma(dz, dz, dx * dx), inf)
+        bi = torch.argmin(d2, dim=1)
+        bd2 = torch.gather(d2, 1, bi[:, None])[:, 0]
+        better = bd2 < best_d2
+        best_d2 = torch.where(better, bd2, best_d2)
+        best_i = torch.where(better, bi + s, best_i)
+    found = torch.isfinite(best_d2)
+    idx = torch.where(query_mask & found, best_i, -1).to(torch.int32)
+    return idx, sqrt(best_d2)
