@@ -9,9 +9,14 @@ package beside it. Phases, each printing its own line:
 0. the device: card name and power limit (``nvidia-smi``), torch, CUDA
    and nvcc versions;
 1. build both hand-written kernels (``csrc/*.cu``) from source;
-2. kernel K2 (flow-field integration) against its plain PyTorch version
-   at the move path's batch shapes on the 4x4-chunk battle map, with and
-   without seed costs: the fields must be bit-equal; both times;
+2. kernel K2 (flow-field integration, one thread-block cluster per field)
+   against its plain PyTorch version on the 4x4-chunk battle map: the
+   move path's 64x64 chunk batches, with and without seed costs, and the
+   whole-map 256x256 shapes: layer 0 at K = 2 seeded at the phase-4 spawn
+   tiles (the chase fields), all 12 layers at K = 12, and a serpentine
+   where the 1,024-sweep cap binds. The fields must be bit-equal; prints
+   both times, the sweeps the plain run took and the cluster size
+   (``tools/profile_k2.py`` compares other cuts);
 3. kernel K1 (HRVO select) against its plain version, exact and fan mode,
    on a real 3x3 window of the 10,256-slot battle scene: bit-equal on
    every moving row (which implies the parity tests' bounds: median error
@@ -26,16 +31,19 @@ package beside it. Phases, each printing its own line:
    melee), stepped until the first death (which must come within 1,800
    frames), then a 120-frame contact window timed frame by frame, then 60
    frames with every substep bracketed by synchronizations. Fails unless
-   K1's launches equal the movement substeps, K2 launched, deaths, attack
-   starts and projectile hits occurred, each faction holds a chase field
-   and sees ``VISIBLE`` fog tiles, and no position, velocity or hp is NaN.
-   Prints ms per frame (march, contact), ms per substep kind at contact,
-   the plain whole-map seek build (ms and field count), the nav cadence's
-   counters and peak memory.
+   K1's launches equal the movement substeps, K2 launched for chunks and
+   for whole maps (the chase fields), deaths, attack starts and
+   projectile hits occurred, each faction holds a chase field and sees
+   ``VISIBLE`` fog tiles, and no position, velocity or hp is NaN. Prints
+   ms per frame (march, contact, worst contact frame), ms per substep
+   kind at contact, the chase-field rebuild through K2 (ms and field
+   count), the nav cadence's counters and peak memory.
 
-The script imports only the port (and ``tools/mapgen``) and fails if any
-``jax``/``jaxlib``/``flax`` module was loaded. Before the last line come one
-JSON object with per-kernel numbers and the card's name and power limit;
+The script imports only the port and fails if any ``jax``/``jaxlib``/
+``flax`` module or anything of the JAX package (``permafrost_engine_tpu``)
+was loaded. Before the last line come one JSON object with per-kernel
+numbers (time, plain time, the card's least time for the work and what
+sets it, launches on the main path) and the card's name and power limit;
 the last is ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/``.
 """
@@ -58,6 +66,17 @@ FRAMES = 360
 WAR_MAX_FRAMES = 1800       # the first death must come within this
 CONTACT_FRAMES = 120
 SUBSTEP_FRAMES = 60
+# the card's peak rates for a kernel's least time (NVIDIA's H100 SXM data
+# sheet): device memory bytes/s, and f32 operations/s outside the tensor
+# cores for operations that are not FMAs (adds, multiplies, mins, compares):
+# half the sheet's 67e12 flop/s, which counts an FMA as two
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 33.5e12
+# K2's work per tile per sweep: 8 candidate adds and 8 mins (the diagonal
+# step cost is computed once); K1's per cone test, counted from csrc/hrvo.cu
+# without the per-cone terms a kernel can hoist: ~35 operations, none fused
+K2_OPS_PER_TILE_SWEEP = 16
+K1_OPS_PER_CONE_TEST = 35
 
 
 def log(msg: str) -> None:
@@ -84,21 +103,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build_battle(dev, war: bool = False):
-    """bench.py's build_battle(5000, terrain=True): the 4x4-chunk battle
-    map, two factions (at war if `war`), two 5,000-unit blocks (rng seed 0,
-    20% ranged) ordered to the far side."""
-    from permafrost_engine_tpu_torch import DiplomacyState, EngineConfig
-    from permafrost_engine_tpu_torch.game.engine import Engine
-    from mapgen import make_battle_map
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The card's least time for the work (ms) and what sets it: each
+    input read once and each output written once at the memory rate, or
+    the operations at the f32 rate for unfused operations, whichever is
+    longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
-    cfg = EngineConfig(max_ents=2 * N_PER_SIDE + 256)
-    eng = Engine(cfg, device=dev)
-    eng.load_map_data(make_battle_map())
-    eng.add_faction(0)
-    eng.add_faction(1)
-    if war:
-        eng.set_diplomacy(0, 1, DiplomacyState.WAR)
+
+def spawn_blocks():
+    """The two armies' spawn positions and ranged mask (rng seed 0), as
+    bench.py's build_battle(5000, terrain=True) spawns them."""
     rng = np.random.default_rng(0)
 
     def block(x0, z0, n, files, dx=4.0, dz=3.0):
@@ -109,26 +126,49 @@ def build_battle(dev, war: bool = False):
         return np.stack([x, z], 1).astype(np.float32)
 
     ranged = rng.random(N_PER_SIDE) < 0.2
+    return (block(200.0, 212.0, N_PER_SIDE, 25),
+            block(820.0, 212.0, N_PER_SIDE, 25), ranged)
+
+
+def build_battle(dev, war: bool = False):
+    """bench.py's build_battle(5000, terrain=True): the 4x4-chunk battle
+    map, two factions (at war if `war`), two 5,000-unit blocks (rng seed 0,
+    20% ranged) ordered to the far side."""
+    from permafrost_engine_tpu_torch import DiplomacyState, EngineConfig
+    from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
+    from permafrost_engine_tpu_torch.game.engine import Engine
+
+    cfg = EngineConfig(max_ents=2 * N_PER_SIDE + 256)
+    eng = Engine(cfg, device=dev)
+    eng.load_map_data(make_battle_map())
+    eng.add_faction(0)
+    eng.add_faction(1)
+    if war:
+        eng.set_diplomacy(0, 1, DiplomacyState.WAR)
+    pos_a, pos_b, ranged = spawn_blocks()
     kw = dict(max_speed=20.0, is_ranged=ranged,
               attack_range=np.where(ranged, 40.0, 5.0), vision_range=80.0,
               hp=200.0)
-    a = eng.spawn_batch(block(200.0, 212.0, N_PER_SIDE, 25), faction=0, **kw)
-    b = eng.spawn_batch(block(820.0, 212.0, N_PER_SIDE, 25), faction=1, **kw)
+    a = eng.spawn_batch(pos_a, faction=0, **kw)
+    b = eng.spawn_batch(pos_b, faction=1, **kw)
     goals = {"a": (820.0, 512.0), "b": (200.0, 512.0)}
     check(eng.move(a, goals["a"]), "army a path request")
     check(eng.move(b, goals["b"]), "army b path request")
     return eng, a, b, goals
 
 
-def phase_k2(dev, cost):
-    """K2 vs plain at the path's shapes: the portal-graph build batch
-    (every portal span of layer 0 seeded), the same chunks as a union-field
-    install (random costs on the seeds), and a goal batch (one random
-    passable tile per chunk, all 16 chunks of all 12 layers)."""
+def k2_batches(cost):
+    """K2's inputs at the main path's shapes. Chunks (64x64): the
+    portal-graph build batch (every portal span of layer 0 seeded), the
+    same chunks as a union-field install (random costs on the seeds), and
+    a goal batch (one random passable tile per chunk, all 16 chunks of all
+    12 layers). Whole maps (256x256): layer 0 at K = 2 seeded at the
+    phase-4 spawn tiles of the other army (the two chase fields), all 12
+    layers at K = 12 seeded likewise, and a serpentine (walls every 4 rows,
+    gaps at alternating ends) where the 1,024-sweep cap binds."""
     from permafrost_engine_tpu_torch import COST_IMPASSABLE, FIELD_RES
+    from permafrost_engine_tpu_torch.core.config import NAV_TILE_SIZE
     from permafrost_engine_tpu_torch.nav.portals import find_portals, span_seed_batch
-    from permafrost_engine_tpu_torch.ops.flowfield import integrate_plain
-    from permafrost_engine_tpu_torch.ops.flowfield_cuda import integrate_cuda
 
     rng = np.random.default_rng(0)
     portals, _ = find_portals(cost[0], 4, 4)
@@ -142,29 +182,68 @@ def phase_k2(dev, cost):
         if rr.size:
             j = rng.integers(rr.size)
             goal[i, rr[j], cc[j]] = True
-    batches = {
+
+    layers, h, w = cost.shape
+    army = np.zeros((2, h, w), bool)
+    for f, pos in enumerate(spawn_blocks()[:2]):
+        t = (pos / NAV_TILE_SIZE).astype(np.int64)
+        army[f, np.clip(t[:, 1], 0, h - 1), np.clip(t[:, 0], 0, w - 1)] = True
+    enemy = army[::-1]                     # field f chases the other army
+    serp = np.ones((1, h, w), np.uint8)
+    for i, r in enumerate(range(4, h, 4)):
+        serp[0, r, :] = COST_IMPASSABLE
+        serp[0, r, (w - 1) if i % 2 == 0 else 0] = 1
+    serp_seed = np.zeros((1, h, w), bool)
+    serp_seed[0, 0, 0] = True
+    return {
         "portal_spans": (pc, ps, None),
         "union_install": (pc, ps, pv),
         "goal_tiles": (np.ascontiguousarray(chunks), goal, None),
+        "map_layer0": (np.ascontiguousarray(np.broadcast_to(cost[0], (2, h, w))),
+                       np.ascontiguousarray(enemy), None),
+        "map_12_layers": (np.ascontiguousarray(cost),
+                          np.ascontiguousarray(enemy[np.arange(layers) % 2]),
+                          None),
+        "map_serpentine": (serp, serp_seed, None),
     }
+
+
+def phase_k2(dev, cost):
+    """K2 vs plain at the main path's shapes (see ``k2_batches``), through
+    the wrapper the path calls, at its cut (``plan``: 4 blocks per chunk,
+    16 per map, above 8 a non-portable cluster size)."""
+    from permafrost_engine_tpu_torch.ops.flowfield import integrate_plain
+    from permafrost_engine_tpu_torch.ops.flowfield_cuda import integrate, plan
+
     out = {}
-    for name, (c, s, v) in batches.items():
+    for name, (c, s, v) in k2_batches(cost).items():
         ct = torch.from_numpy(c).to(dev)
         st = torch.from_numpy(s).to(dev)
         vt = None if v is None else torch.from_numpy(v).to(dev)
-        got = integrate_cuda(ct, st, vt)
-        want = integrate_plain(ct, st, vt)
-        torch.cuda.synchronize()
+        k, h, w = c.shape
+        cut = plan(h, w)
+        stats = {}
+        want = integrate_plain(ct, st, vt, max_iters=4 * max(h, w), stats=stats)
+        plain_ms = cuda_ms(lambda: integrate_plain(
+            ct, st, vt, max_iters=4 * max(h, w)), 3, warmup=1)
         finite = want < 1e30
+        got = integrate(ct, st, vt)
+        torch.cuda.synchronize()
         check(torch.equal(finite, got < 1e30), f"K2 {name}: reachability")
         err = float((got - want)[finite].abs().max()) if finite.any() else 0.0
         check(torch.equal(got, want), f"K2 {name}: bit-equal (max err {err})")
-        ms = cuda_ms(lambda: integrate_cuda(ct, st, vt), 20)
-        plain_ms = cuda_ms(lambda: integrate_plain(ct, st, vt), 3, warmup=1)
-        out[name] = dict(chunks=int(c.shape[0]), max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms)
-        log(f"phase 2 K2 {name}: K={c.shape[0]} bit-equal max_abs_err={err} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        ms = cuda_ms(lambda: integrate(ct, st, vt), 20)
+        nbytes = k * h * w * (1 + 1 + 4 + (0 if v is None else 4))
+        b_ms, b_by = bound(nbytes, stats["sweeps"] * k * h * w
+                           * K2_OPS_PER_TILE_SWEEP)
+        out[name] = dict(k=k, h=h, w=w, plain_sweeps=stats["sweeps"],
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         reachable=int(finite.sum()), cluster=cut[0],
+                         plan=cut, ms=ms, max_abs_err=err)
+        log(f"phase 2 K2 {name}: K={k} {h}x{w} cluster={cut[0]} "
+            f"threads={cut[2]} bit-equal max_abs_err={err} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"plain_sweeps={stats['sweeps']} bound_ms={b_ms:.5f} ({b_by})")
     return out
 
 
@@ -182,8 +261,11 @@ def phase_k1(dev):
     moving = x["moving_mask"]
     rows = int(moving.sum())
     check(rows > 0, "K1: moving rows in the window")
+    n, c2 = args[5].shape[0], args[5].shape[1]
+    nbytes = sum(a.numel() * a.element_size() for a in args) + n * 2 * 4
     out = {}
-    for mode, exact in (("exact", True), ("fan", False)):
+    # candidate velocities per row (csrc/hrvo.cu): 377 exact, 57 fan
+    for mode, exact, nc in (("exact", True, 377), ("fan", False, 57)):
         got = hrvo_select_cuda(*args, exact=exact)
         want = hrvo_select_plain(*args, exact=exact)
         torch.cuda.synchronize()
@@ -197,28 +279,48 @@ def phase_k1(dev):
         ms = cuda_ms(lambda: hrvo_select_cuda(*args, exact=exact), 20)
         plain_ms = cuda_ms(lambda: hrvo_select_plain(*args, exact=exact), 3,
                            warmup=1)
+        # every row: distances and 32 arg-min rounds over the window, then
+        # every candidate velocity against every one of the 32 cones
+        ops = n * (4 * c2 + 32 * c2 + nc * 32 * K1_OPS_PER_CONE_TEST)
+        b_ms, b_by = bound(nbytes, ops)
         out[mode] = dict(rows=rows, share_1e4=share, max_abs_err=max_err,
-                         ms=ms, plain_ms=plain_ms)
-        log(f"phase 3 K1 {mode}: N={args[0].shape[0]} C2={args[5].shape[1]} "
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, ops=ops, bytes=nbytes)
+        log(f"phase 3 K1 {mode}: N={n} C2={c2} candidates={nc} "
             f"moving={rows} bit-equal share_within_1e-4={share:.6f} "
-            f"max_abs_err={max_err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            f"max_abs_err={max_err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by})")
     del eng
     return out
 
 
+def reset_counts():
+    from permafrost_engine_tpu_torch.ops import crowd_cuda, flowfield_cuda
+
+    flowfield_cuda.launches_chunk = 0
+    flowfield_cuda.launches_map = 0
+    crowd_cuda.launches = 0
+
+
+def read_counts() -> dict:
+    from permafrost_engine_tpu_torch.ops import crowd_cuda, flowfield_cuda
+
+    return dict(k1=crowd_cuda.launches, k2_chunk=flowfield_cuda.launches_chunk,
+                k2_map=flowfield_cuda.launches_map)
+
+
 def phase_slice(dev):
     from permafrost_engine_tpu_torch import FRAME_HZ
-    from permafrost_engine_tpu_torch.ops import crowd_cuda, flowfield_cuda
+    from permafrost_engine_tpu_torch.ops import flowfield_cuda
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flowfield_cuda.launches = 0
-    crowd_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     eng, a, b, goals = build_battle(dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    k2_move = flowfield_cuda.launches
+    k2_move = flowfield_cuda.launches_chunk
     chunks = eng.nav.stats["chunks_built"]
     sa = torch.as_tensor([eng.uid_to_slot[u] for u in a], device=dev)
     sb = torch.as_tensor([eng.uid_to_slot[u] for u in b], device=dev)
@@ -242,17 +344,17 @@ def phase_slice(dev):
         frame_s.append(dt)
         if eng.state.tick % period == 0:
             sub_s.append(dt)
-    k1 = crowd_cuda.launches
-    k2 = flowfield_cuda.launches
+    counts = read_counts()
+    k1 = counts["k1"]
     d1 = mean_dist()
     e = eng.state.ents
     check(bool(torch.isfinite(e.pos).all() and torch.isfinite(e.vel).all()),
           "no NaN in pos/vel")
-    check(k2 > 0, "K2 launched on the main path")
+    check(counts["k2_chunk"] > 0, "K2 launched on the main path")
     check(k1 == len(sub_s) and k1 > 0, f"K1 launches {k1} == substeps {len(sub_s)}")
     check(d1[0] < d0[0] and d1[1] < d0[1], f"armies closed on goals {d0} -> {d1}")
     res = dict(setup_s=setup_s, k2_launches_move=k2_move, chunks_built=chunks,
-               k1_launches=k1, k2_launches=k2, substeps=len(sub_s),
+               counts=counts, substeps=len(sub_s),
                ms_per_frame=1e3 * sum(frame_s) / FRAMES,
                ms_per_substep=1e3 * sum(sub_s) / len(sub_s),
                ms_per_other_frame=1e3 * (sum(frame_s) - sum(sub_s))
@@ -261,7 +363,7 @@ def phase_slice(dev):
                mean_goal_dist_before=d0, mean_goal_dist_after=d1)
     log(f"phase 4 slice: {2 * N_PER_SIDE} units, {FRAMES} frames, "
         f"setup_s={setup_s:.3f} k2_launches_during_move={k2_move} "
-        f"chunks_built={chunks} k1_launches={k1} substeps={len(sub_s)} "
+        f"chunks_built={chunks} launches={counts} substeps={len(sub_s)} "
         f"ms_per_frame={res['ms_per_frame']:.4f} "
         f"ms_per_substep={res['ms_per_substep']:.4f} "
         f"max_memory_allocated={res['max_memory_allocated']} "
@@ -306,12 +408,10 @@ def phase_war(dev):
     a timed contact window, then the per-substep split (see the module
     docstring)."""
     from permafrost_engine_tpu_torch import FRAME_HZ, FogState
-    from permafrost_engine_tpu_torch.ops import crowd_cuda, flowfield_cuda
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flowfield_cuda.launches = 0
-    crowd_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     eng, _a, _b, _goals = build_battle(dev, war=True)
     torch.cuda.synchronize()
@@ -344,13 +444,16 @@ def phase_war(dev):
             frame()
     finally:
         restore()
-    k1, k2 = crowd_cuda.launches, flowfield_cuda.launches
+    counts = read_counts()
+    k1 = counts["k1"]
 
     e = eng.state.ents
     check(bool(torch.isfinite(e.pos).all() and torch.isfinite(e.vel).all()
                and not torch.isnan(e.hp).any()), "no NaN in pos/vel/hp")
     check(k1 == substeps and k1 > 0, f"K1 launches {k1} == substeps {substeps}")
-    check(k2 > 0, "K2 launched across setup and the war")
+    check(counts["k2_chunk"] > 0, f"K2 launched for chunks at war: {counts}")
+    check(counts["k2_map"] > 0,
+          f"K2 launched for the whole-map chase fields at war: {counts}")
     ev = {k: count(k) for k in ("entity_death", "attack_start",
                                 "projectile_hit", "entity_removed")}
     for k in ("entity_death", "attack_start", "projectile_hit"):
@@ -363,7 +466,7 @@ def phase_war(dev):
     check(min(visible) > 0, f"each faction sees VISIBLE fog tiles: {visible}")
     check(eng._tile_height is not None, "the battle map has fog heights")
 
-    # the plain whole-map seek build, alone, on the live state
+    # the chase-field rebuild through K2, alone, on the live state
     specs = [(f, lay, slot, None)
              for (f, lay), slot in sorted(eng._chase_gslot.items())]
     seek = []
@@ -384,20 +487,20 @@ def phase_war(dev):
         seek_build_ms=[1e3 * x for x in seek], seek_build_fields=len(specs),
         seek_batches=eng.nav.stats["seek_batches"],
         seek_fields=eng.nav.stats["seek_fields"],
-        counters=dict(eng.counters), events=ev, k1_launches=k1,
-        k2_launches=k2, substeps=substeps, visible_tiles=visible,
+        counters=dict(eng.counters), events=ev, counts=counts,
+        substeps=substeps, visible_tiles=visible,
         chase_slots=chase[:2].tolist(),
         max_memory_allocated=torch.cuda.max_memory_allocated())
     log(f"phase 5 war: {2 * N_PER_SIDE} units at war, setup_s={setup_s:.3f} "
         f"first death after {len(march)} frames, "
         f"ms_per_frame march={res['ms_per_frame_march']:.4f} "
         f"contact={res['ms_per_frame_contact']:.4f} "
-        f"(max {res['max_ms_frame_contact']:.4f}), k1_launches={k1}="
-        f"substeps k2_launches={k2}, events={ev}")
+        f"(max {res['max_ms_frame_contact']:.4f}), launches={counts} "
+        f"(k1 = substeps), events={ev}")
     log("phase 5 substeps at contact (ms, sync-bracketed): " + " ".join(
         f"{k}={v:.4f}x{res['substep_calls'][k]}"
         for k, v in res["ms_per_substep_contact"].items()))
-    log(f"phase 5 plain whole-map seek build: {len(specs)} fields, ms="
+    log(f"phase 5 chase-field rebuild (K2, 256x256): {len(specs)} fields, ms="
         + ",".join(f"{x:.3f}" for x in res["seek_build_ms"])
         + f"; batches={res['seek_batches']} fields={res['seek_fields']}")
     log("phase 5 cadence counters (ms): " + " ".join(
@@ -411,10 +514,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
     from permafrost_engine_tpu_torch import compile_nav_costs
+    from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
     from permafrost_engine_tpu_torch.ops import cuda_build
-    from mapgen import make_battle_map
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -457,23 +559,35 @@ def main() -> int:
                        build_s=builds, k2=k2, k1=k1, slice=sl, war=war,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
+    def k2_row(shape_class, batch, launches):
+        b = k2[batch]
+        errs = [v["max_abs_err"] for v in k2.values()
+                if (v["h"], v["w"]) == (b["h"], b["w"])]
+        return dict(name=f"K2 flow-field integration ({shape_class})",
+                    route="cuda",
+                    source="permafrost_engine_tpu_torch/csrc/integrate.cu",
+                    replaces="permafrost_engine_tpu/ops/flowfield_pallas.py:110",
+                    launches=launches, max_abs_err=max(errs), ms=b["ms"],
+                    plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
+                    bound_by=b["bound_by"], library_ms=None)
+
+    launches = {k: sl["counts"][k] + war["counts"][k] for k in sl["counts"]}
     kernels = [
-        dict(name="K2 flow-field integration", route="cuda",
-             source="permafrost_engine_tpu_torch/csrc/integrate.cu",
-             replaces="permafrost_engine_tpu/ops/flowfield_pallas.py:110",
-             launches=sl["k2_launches"] + war["k2_launches"],
-             max_abs_err=max(v["max_abs_err"] for v in k2.values()),
-             ms=k2["portal_spans"]["ms"], plain_ms=k2["portal_spans"]["plain_ms"]),
+        k2_row("64x64 chunks", "portal_spans", launches["k2_chunk"]),
+        k2_row("256x256 map", "map_layer0", launches["k2_map"]),
         dict(name="K1 HRVO select", route="cuda",
              source="permafrost_engine_tpu_torch/csrc/hrvo.cu",
              replaces="permafrost_engine_tpu/ops/crowd_pallas.py:315",
-             launches=sl["k1_launches"] + war["k1_launches"],
+             launches=launches["k1"],
              max_abs_err=max(v["max_abs_err"] for v in k1.values()),
-             ms=k1["exact"]["ms"], plain_ms=k1["exact"]["plain_ms"]),
+             ms=k1["exact"]["ms"], plain_ms=k1["exact"]["plain_ms"],
+             bound_ms=k1["exact"]["bound_ms"], bound_by=k1["exact"]["bound_by"],
+             library_ms=None),
     ]
-    jax_mods = sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "jaxlib", "flax"))
-    check(not jax_mods, f"no JAX module imported: {jax_mods[:5]}")
+    # no PyTorch call computes either kernel's function, so no library_ms
+    jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "permafrost_engine_tpu"))
+    check(not jax_mods, f"no JAX module or JAX package imported: {jax_mods[:5]}")
     log(json.dumps({"kernels": kernels}))
     log(smi[0])
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,12 @@ hand-written CUDA C++ kernels for Hopper (``csrc/``), built with ``nvcc`` at
 first use and bound with ctypes; on CPU tensors every kernel wrapper runs
 its plain PyTorch version instead.
 
-The port never imports ``jax``. It shares the JAX package's JAX-free
-modules by import (``core/config.py``, ``core/events.py``,
-``core/sched.py``, ``assets/pfmap.py``, ``game/arrival.py``,
-``utils/native.py``); ``permafrost_engine_tpu/__init__.py`` imports only
-the config, so importing those pulls in no JAX.
+The port imports neither ``jax`` nor anything of the JAX package. The
+JAX-free modules it needs are its own copies, under the same names:
+``core/config.py``, ``core/events.py``, ``game/arrival.py``,
+``assets/pfmap.py`` (with ``assets/mapgen.py``, the battle map) and
+``utils/native.py``, which builds the repository's ``native/pf_native.cpp``
+into the port's ``_build/``.
 
 Ported so far: the move-order -> flow-field -> movement-substep path and
 the war path (``game/engine.Engine``: ``spawn_batch``, ``move``,
@@ -25,7 +26,7 @@ driver script imports only this package.
 
 __version__ = "0.1.0"
 
-from permafrost_engine_tpu.assets.pfmap import compile_nav_costs  # noqa: F401
-from permafrost_engine_tpu.core.config import (  # noqa: F401
+from permafrost_engine_tpu_torch.assets.pfmap import compile_nav_costs  # noqa: F401
+from permafrost_engine_tpu_torch.core.config import (  # noqa: F401
     COST_IMPASSABLE, FIELD_RES, FRAME_HZ, MAX_NEIGHBOURS, DiplomacyState,
     EngineConfig, FogState)

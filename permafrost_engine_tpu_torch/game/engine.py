@@ -33,7 +33,8 @@ import time
 import numpy as np
 import torch
 
-from permafrost_engine_tpu.core.config import (
+from permafrost_engine_tpu_torch.assets.pfmap import compile_nav_costs
+from permafrost_engine_tpu_torch.core.config import (
     ARRIVAL_THRESHOLD,
     DiplomacyState,
     EngineConfig,
@@ -45,8 +46,8 @@ from permafrost_engine_tpu.core.config import (
     footprint_for_radius,
     nav_layer,
 )
-from permafrost_engine_tpu.core.events import EventBus, EventType
-from permafrost_engine_tpu.game.arrival import assign_ring_slots
+from permafrost_engine_tpu_torch.core.events import EventBus, EventType
+from permafrost_engine_tpu_torch.game.arrival import assign_ring_slots
 from permafrost_engine_tpu_torch.game.step import make_tick
 from permafrost_engine_tpu_torch.nav.service import NavService
 from permafrost_engine_tpu_torch.state.schema import (
@@ -241,8 +242,6 @@ class Engine:
         height range above 0.5) the tick is rebuilt with the fog's
         ``tile_height`` (every other nav tile), which selects the
         height-aware shadowcaster; a flat map rebuilds it without."""
-        from permafrost_engine_tpu.assets.pfmap import compile_nav_costs
-
         if (map_data.chunks_r, map_data.chunks_c) != (self.cfg.chunks_r,
                                                       self.cfg.chunks_c):
             raise ValueError(

@@ -4,8 +4,9 @@ Port of ``permafrost_engine_tpu/nav/portals.py`` (ref:
 src/navigation/nav.c:563-655, a_star.c:429). Portals are the open runs of
 each chunk border; the intra-chunk portal-to-portal costs come from ONE
 batched integration with every portal's span seeded (kernel K2 on a CUDA
-device, ``ops/flowfield_cuda.integrate``). A* stays on the host: the JAX
-package's native C++ A* (``utils/native.py``, pure-Python fallback here).
+device, ``ops/flowfield_cuda.integrate``). A* stays on the host: the
+native C++ A* of ``native/pf_native.cpp`` (``utils/native.py``), with a
+pure-Python fallback here.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import heapq
 import numpy as np
 import torch
 
-from permafrost_engine_tpu.core.config import (
+from permafrost_engine_tpu_torch.core.config import (
     COST_IMPASSABLE,
     FIELD_RES,
     INF_COST,
@@ -192,7 +193,7 @@ def astar_portals(graph: PortalGraph, start_costs: dict[int, float],
         return _astar_portals_py(graph, start_costs, goal_costs, goal_rc,
                                  blocked)
     if start_costs and goal_costs:
-        from permafrost_engine_tpu.utils import native
+        from permafrost_engine_tpu_torch.utils import native
         off, dst, cost, nr, nc = graph.csr()
         res = native.astar_csr(
             off, dst, cost, nr, nc,

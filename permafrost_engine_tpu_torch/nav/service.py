@@ -18,9 +18,9 @@ portal reuse fields (ref: fieldcache.h:53-167).
 Whole-map enemy-seek fields (the per-(faction, layer) chase fields combat
 chasers follow, ref: field.c:1209-1678) are built in one batch per
 refresh: ``build_enemy_seek_fields_batch``. Their 256x256 integration is
-an XLA op in the JAX package, not a Pallas kernel, and K2 only takes 64x64
-chunks in shared memory, so it runs the plain ``integrate_plain`` on every
-device (a whole-map kernel is queued in ROADMAP.md).
+an XLA op in the JAX package (``ff.integrate`` with a cap of 4*max(H, W)
+sweeps), the same Jacobi min-plus schedule as the Pallas kernel; here it
+goes through K2 like every chunk, one thread-block cluster per field.
 
 The JAX version pads every batch to a small fixed set of sizes and
 pre-compiles them (``prewarm``, ``batch_buckets``, the seek batch's
@@ -37,7 +37,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from permafrost_engine_tpu.core.config import (
+from permafrost_engine_tpu_torch.core.config import (
     COST_IMPASSABLE,
     DiplomacyState,
     EngineConfig,
@@ -49,7 +49,6 @@ from permafrost_engine_tpu.core.config import (
 )
 from permafrost_engine_tpu_torch.nav import portals as pt
 from permafrost_engine_tpu_torch.ops import flowfield as ff
-from permafrost_engine_tpu_torch.ops.flowfield import integrate_plain
 from permafrost_engine_tpu_torch.ops.flowfield_cuda import integrate
 from permafrost_engine_tpu_torch.ops.islands import label_islands
 from permafrost_engine_tpu_torch.state.schema import GameState
@@ -760,11 +759,10 @@ class NavService:
         cfg, dev = self.cfg, self.device
         lay = torch.as_tensor(layers, dtype=torch.long, device=dev)
         cost = state.nav.cost_base[lay]
-        # the JAX package runs this integration on XLA (ff.integrate), not
-        # in a Pallas kernel, and K2 holds only 64x64 chunks in shared
-        # memory: the plain version, on every device
-        integ = integrate_plain(cost, seeds,
-                                max_iters=4 * max(cfg.field_h, cfg.field_w))
+        # the JAX package runs this on XLA (ff.integrate, the same sweeps);
+        # K2 integrates whole maps too, one thread-block cluster per field
+        integ = integrate(cost, seeds.contiguous(),
+                          max_iters=4 * max(cfg.field_h, cfg.field_w))
         sl = torch.as_tensor(slots, dtype=torch.long, device=dev)
         state.fields.global_flow[sl] = ff.flow_dirs(integ, cost)
         owned = [(f, s) for f, s in zip(flock_ids, slots) if f is not None]

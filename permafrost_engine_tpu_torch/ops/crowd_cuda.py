@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from permafrost_engine_tpu.core.config import MAX_NEIGHBOURS
+from permafrost_engine_tpu_torch.core.config import MAX_NEIGHBOURS
 from permafrost_engine_tpu_torch.ops import cuda_build
 from permafrost_engine_tpu_torch.ops.rounding import fma
 

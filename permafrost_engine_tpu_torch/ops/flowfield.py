@@ -4,8 +4,9 @@ Port of ``permafrost_engine_tpu/ops/flowfield.py`` (ref:
 src/navigation/field.c:539-566 Dijkstra, field.c:734-828 directions,
 field.c:435-537 LOS). Integration is batched min-plus relaxation over the
 8-neighbour octile stencil; ``integrate_plain`` is the plain PyTorch version
-of kernel K2 (``ops/flowfield_cuda.py``), and per-chunk callers go through
-``flowfield_cuda.integrate``, which launches K2 on CUDA tensors.
+of kernel K2 (``ops/flowfield_cuda.py``), and every caller, per chunk or
+whole map, goes through ``flowfield_cuda.integrate``, which launches K2 on
+CUDA tensors.
 
 All functions are shape-polymorphic over leading batch dims.
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from permafrost_engine_tpu.core.config import (
+from permafrost_engine_tpu_torch.core.config import (
     COST_IMPASSABLE,
     FIELD_RES,
     FLOW_DIR_OFFSETS,
@@ -71,7 +72,8 @@ def _relax_once(integ, step, step_diag, passable, allowed):
 
 def integrate_plain(cost: torch.Tensor, seed_mask: torch.Tensor,
                     seed_cost: torch.Tensor | None = None, *,
-                    max_iters: int = 4 * FIELD_RES) -> torch.Tensor:
+                    max_iters: int = 4 * FIELD_RES,
+                    stats: dict | None = None) -> torch.Tensor:
     """Plain PyTorch integration (the version K2 is held against).
 
     cost u8[..., H, W] (COST_IMPASSABLE blocks), seed_mask bool[..., H, W],
@@ -80,7 +82,8 @@ def integrate_plain(cost: torch.Tensor, seed_mask: torch.Tensor,
     the JAX Pallas kernel's schedule (``flowfield_pallas._integrate_kernel``);
     since further sweeps leave a fixed point unchanged, the result also
     equals the XLA version's 16-sweep bundles. Returns f32[..., H, W],
-    INF_COST where unreachable or blocked."""
+    INF_COST where unreachable or blocked; a `stats` dict gets the number
+    of sweeps run under "sweeps"."""
     passable = cost != COST_IMPASSABLE
     step = torch.where(passable, cost.to(torch.float32), INF_COST)
     step_diag = step * torch.tensor(SQRT2, dtype=torch.float32,
@@ -100,6 +103,8 @@ def integrate_plain(cost: torch.Tensor, seed_mask: torch.Tensor,
         integ = new
         if done:
             break
+    if stats is not None:
+        stats["sweeps"] = i
     return torch.where(seeded, sc, integ)
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from permafrost_engine_tpu.core.config import FogState, UNITS_PER_TILE
+from permafrost_engine_tpu_torch.core.config import FogState, UNITS_PER_TILE
 from permafrost_engine_tpu_torch.ops.shadowcast import shadowcast_visibility
 
 # vision radii quantized to buckets, in map tiles

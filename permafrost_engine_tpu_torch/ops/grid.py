@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from permafrost_engine_tpu.core.config import SPATIAL_CELL_SIZE
+from permafrost_engine_tpu_torch.core.config import SPATIAL_CELL_SIZE
 from permafrost_engine_tpu_torch.ops.rounding import fma, sqrt
 
 

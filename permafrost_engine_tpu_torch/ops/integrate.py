@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from permafrost_engine_tpu.core.config import (
+from permafrost_engine_tpu_torch.core.config import (
     ARRIVAL_THRESHOLD,
     CELL_ARRIVAL_RADIUS,
     COST_IMPASSABLE,

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from permafrost_engine_tpu.core.config import COST_IMPASSABLE
+from permafrost_engine_tpu_torch.core.config import COST_IMPASSABLE
 from permafrost_engine_tpu_torch.ops.flowfield import shift2d
 
 _OFFS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from permafrost_engine_tpu.core.config import (
+from permafrost_engine_tpu_torch.core.config import (
     DiplomacyState,
     EngineConfig,
     EntityFlags,

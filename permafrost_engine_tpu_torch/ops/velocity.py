@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from permafrost_engine_tpu.core.config import FIELD_RES, NAV_TILE_SIZE
+from permafrost_engine_tpu_torch.core.config import FIELD_RES, NAV_TILE_SIZE
 from permafrost_engine_tpu_torch.ops.flowfield import dir_code_to_vec
 
 

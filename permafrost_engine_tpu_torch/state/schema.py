@@ -26,7 +26,7 @@ import dataclasses
 
 import torch
 
-from permafrost_engine_tpu.core.config import (
+from permafrost_engine_tpu_torch.core.config import (
     EngineConfig,
     FIELD_RES,
     VEL_HIST_LEN,

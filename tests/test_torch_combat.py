@@ -9,6 +9,7 @@ the CPU, which contracts some multiply-adds into FMAs; the port contracts
 the same ones (``ops/rounding.py``), so no ulp bound is needed.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -16,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from permafrost_engine_tpu.core.config import (
     CombatState,
@@ -37,11 +39,14 @@ from permafrost_engine_tpu_torch.state.convert import (
     state_to_numpy,
 )
 from permafrost_engine_tpu_torch.state.schema import empty_deltas as tempty
+from permafrost_engine_tpu_torch.core.config import EngineConfig as TorchConfig
 
 N = 384
 CFG = EngineConfig(max_ents=N, chunks_r=1, chunks_c=1, num_layers=1,
                    max_flocks=4, max_projectiles=64, field_slab_slots=8,
                    los_slab_slots=8)
+# the port's own EngineConfig, built from the same fields
+TCFG = TorchConfig(**dataclasses.asdict(CFG))
 
 
 def _arena(seed: int):
@@ -158,7 +163,7 @@ def test_combat_substep_exact(seed):
     fn = jax.jit(functools.partial(jcombat.combat_substep, CFG))
     jst, jd, jatk = fn(st, jempty(CFG))
     tst = state_from_numpy(jax.device_get(st), "cpu")
-    tst, td, tatk = tcombat.combat_substep(CFG, tst, tempty(CFG, device="cpu"))
+    tst, td, tatk = tcombat.combat_substep(TCFG, tst, tempty(TCFG, device="cpu"))
     _ents_equal(jst, tst, "ents")
     _assert_tree_equal(jax.device_get(jd), _deltas_np(td), "deltas")
     np.testing.assert_array_equal(tatk.numpy(), np.asarray(jatk))
@@ -170,7 +175,7 @@ def test_corpse_substep_exact():
     fn = jax.jit(functools.partial(jcombat.corpse_substep, CFG))
     jst, _jd, jexp = fn(st, jempty(CFG))
     tst = state_from_numpy(jax.device_get(st), "cpu")
-    tst, _td, texp = tcombat.corpse_substep(CFG, tst, tempty(CFG, device="cpu"))
+    tst, _td, texp = tcombat.corpse_substep(TCFG, tst, tempty(TCFG, device="cpu"))
     _ents_equal(jst, tst, "ents")
     np.testing.assert_array_equal(texp.numpy(), np.asarray(jexp))
     assert texp.any()
@@ -190,7 +195,7 @@ def test_spawn_projectiles_exact(seed):
         e.base_dmg)
     tst = state_from_numpy(jax.device_get(st), "cpu")
     t = tst.ents
-    tp = tproj.spawn_projectiles(CFG, tst.projectiles, torch.from_numpy(shooters),
+    tp = tproj.spawn_projectiles(TCFG, tst.projectiles, torch.from_numpy(shooters),
                                  t.pos, t.pos[torch.from_numpy(tgt)], t.faction,
                                  t.base_dmg)
     _assert_tree_equal(jax.device_get(jp), state_to_numpy(tst)["projectiles"],
@@ -205,7 +210,7 @@ def test_projectile_substep_exact(seed):
     fn = jax.jit(functools.partial(jproj.projectile_substep, CFG))
     jst, jd = fn(st, jempty(CFG))
     tst = state_from_numpy(jax.device_get(st), "cpu")
-    tst, td = tproj.projectile_substep(CFG, tst, tempty(CFG, device="cpu"))
+    tst, td = tproj.projectile_substep(TCFG, tst, tempty(TCFG, device="cpu"))
     _ents_equal(jst, tst, "ents")
     _assert_tree_equal(jax.device_get(jst.projectiles),
                        state_to_numpy(tst)["projectiles"], "projectiles")
@@ -221,7 +226,7 @@ def test_combat_step_spawns_like_jax():
     fn = jax.jit(functools.partial(jstep.combat_substep, CFG))
     jst, jd = fn(st, jempty(CFG))
     tst = state_from_numpy(jax.device_get(st), "cpu")
-    tst, td = tstep.combat_substep(CFG, tst, tempty(CFG, device="cpu"))
+    tst, td = tstep.combat_substep(TCFG, tst, tempty(TCFG, device="cpu"))
     _ents_equal(jst, tst, "ents")
     _assert_tree_equal(jax.device_get(jst.projectiles),
                        state_to_numpy(tst)["projectiles"], "projectiles")

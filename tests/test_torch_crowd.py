@@ -17,6 +17,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 import jax.numpy as jnp
 
 from permafrost_engine_tpu.core.config import MAX_NEIGHBOURS

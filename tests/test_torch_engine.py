@@ -13,6 +13,7 @@ Then the port alone drives the squad to full arrival through the wall gap,
 and a fresh interpreter shows the port imports no JAX.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -20,14 +21,22 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)
 
 from permafrost_engine_tpu.core.config import FIELD_RES, MoveState, NAV_TILE_SIZE
 from permafrost_engine_tpu.game.engine import Engine as JaxEngine
+from permafrost_engine_tpu_torch.core.config import EngineConfig as TorchConfig
 from permafrost_engine_tpu_torch.game.engine import Engine
 from test_engine_move import small_cfg, walled_cost
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _GOAL = (400.0, 400.0)
+
+
+def _tcfg(cfg):
+    """The port's EngineConfig with the same fields as a JAX one."""
+    return TorchConfig(**dataclasses.asdict(cfg))
 
 
 def _squad():
@@ -39,7 +48,7 @@ def _squad():
 def both_engines():
     cfg = small_cfg()
     jeng = JaxEngine(cfg, cost_base=walled_cost(cfg))
-    teng = Engine(cfg, device="cpu", cost_base=walled_cost(cfg))
+    teng = Engine(_tcfg(cfg), device="cpu", cost_base=walled_cost(cfg))
     ju = jeng.spawn_batch(_squad(), faction=0, max_speed=80.0)
     tu = teng.spawn_batch(_squad(), faction=0, max_speed=80.0)
     assert ju == tu
@@ -93,7 +102,7 @@ def test_new_terrain_replans_like_jax():
     side, so ring slots are re-dealt. Tables and destinations are equal."""
     cfg = small_cfg()
     engines = [JaxEngine(cfg, cost_base=walled_cost(cfg)),
-               Engine(cfg, device="cpu", cost_base=walled_cost(cfg))]
+               Engine(_tcfg(cfg), device="cpu", cost_base=walled_cost(cfg))]
     sealed = walled_cost(cfg)
     sealed[:, FIELD_RES - 1:FIELD_RES + 1, :] = 255
     for eng in engines:
@@ -114,7 +123,7 @@ def test_new_terrain_replans_like_jax():
 @pytest.fixture(scope="module")
 def arrived_engine():
     cfg = small_cfg()
-    eng = Engine(cfg, device="cpu", cost_base=walled_cost(cfg))
+    eng = Engine(_tcfg(cfg), device="cpu", cost_base=walled_cost(cfg))
     uids = eng.spawn_batch(_squad(), faction=0, max_speed=80.0)
     assert eng.move(uids, _GOAL), "path request failed"
     for _ in range(200):
@@ -148,7 +157,7 @@ _NO_JAX = """
 import sys
 import numpy as np
 import permafrost_engine_tpu_torch
-from permafrost_engine_tpu.core.config import EngineConfig, MoveState
+from permafrost_engine_tpu_torch.core.config import EngineConfig, MoveState
 from permafrost_engine_tpu_torch.game.engine import Engine
 cfg = EngineConfig(max_ents=16, chunks_r=1, chunks_c=2, num_layers=1,
                    max_flocks=4, max_projectiles=8, field_slab_slots=8,
@@ -159,7 +168,8 @@ uids = eng.spawn_batch(np.array([[20.0, 20.0], [30.0, 25.0]], np.float32),
 assert eng.move(uids, (400.0, 200.0))
 eng.step(12)
 assert eng.movestate_of(uids[0]) in (MoveState.MOVING, MoveState.TURNING)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "permafrost_engine_tpu"))
 assert not bad, bad
 print("ok")
 """
@@ -167,9 +177,11 @@ print("ok")
 
 def test_port_imports_no_jax():
     """A fresh interpreter (tests/conftest.py imports jax into this one)
-    builds and steps an Engine without importing jax, jaxlib or flax."""
+    builds and steps an Engine without importing jax, jaxlib, flax or
+    anything of the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
+    env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

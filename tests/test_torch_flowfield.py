@@ -9,6 +9,7 @@ The JAX Pallas kernel runs in interpret mode, as in test_flowfield.py.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 import jax.numpy as jnp
 
 from permafrost_engine_tpu.core.config import COST_IMPASSABLE, FIELD_RES

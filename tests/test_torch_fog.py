@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from permafrost_engine_tpu.assets.pfmap import compile_nav_costs
 from permafrost_engine_tpu.ops import fog as jfog

@@ -11,6 +11,7 @@ operation). The whole substep runs the JAX Pallas crowd kernel in
 interpret mode, the counterpart of the port's kernel K1.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)
 
 from permafrost_engine_tpu.core.config import (
     CONTACT_CELL_SIZE,
@@ -39,7 +41,13 @@ from permafrost_engine_tpu_torch.ops import integrate as tinteg
 from permafrost_engine_tpu_torch.ops import velocity as tvel
 from permafrost_engine_tpu_torch.state.convert import state_from_numpy
 from permafrost_engine_tpu_torch.state.schema import empty_deltas as tempty
+from permafrost_engine_tpu_torch.core.config import EngineConfig as TorchConfig
 from test_engine_move import small_cfg, walled_cost
+
+
+def _tcfg(cfg):
+    """The port's EngineConfig with the same fields as a JAX one."""
+    return TorchConfig(**dataclasses.asdict(cfg))
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,14 +215,14 @@ def test_restamp_blockers_exact():
     js = _j(host)
     ts = state_from_numpy(host, "cpu")
     want = jstep._restamp_blockers(cfg, js.ents, js.nav).blockers
-    got = tstep._restamp_blockers(cfg, ts.ents, ts.nav)
+    got = tstep._restamp_blockers(_tcfg(cfg), ts.ents, ts.nav)
     np.testing.assert_array_equal(got.numpy(), _n(want))
     assert _n(want).sum() > 0
     # a multi-layer config dilates the stamps per footprint
     cfg12 = type(cfg)(**{**cfg.__dict__, "num_layers": 12})
     nav12 = js.nav.replace(blockers=jnp.zeros((12, cfg.field_h, cfg.field_w), jnp.int32))
     want = jstep._restamp_blockers(cfg12, js.ents, nav12).blockers
-    got = tstep._restamp_blockers(cfg12, ts.ents, ts.nav)
+    got = tstep._restamp_blockers(_tcfg(cfg12), ts.ents, ts.nav)
     np.testing.assert_array_equal(got.numpy(), _n(want))
 
 
@@ -229,8 +237,9 @@ def test_movement_substep_matches(frames):
     kernel = functools.partial(hrvo_select_pallas, interpret=True,
                                exact=cfg.clearpath_exact)
     js, jd = jstep.movement_substep(cfg, _j(host), jempty(cfg), kernel)
-    ts, td = tstep.movement_substep(cfg, state_from_numpy(host, "cpu"),
-                                    tempty(cfg, device="cpu"))
+    tcfg = _tcfg(cfg)
+    ts, td = tstep.movement_substep(tcfg, state_from_numpy(host, "cpu"),
+                                    tempty(tcfg, device="cpu"))
     moving = np.asarray(host.ents.alive) & np.isin(
         np.asarray(host.ents.movestate), [MoveState.MOVING, MoveState.TURNING])
     assert moving.sum() >= 10

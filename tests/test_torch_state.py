@@ -11,6 +11,8 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)
 
 from permafrost_engine_tpu.core.config import EngineConfig, EntityFlags
 from permafrost_engine_tpu.game.engine import Engine as JaxEngine
@@ -20,10 +22,16 @@ from permafrost_engine_tpu_torch.state.convert import (
     state_from_numpy,
     state_to_numpy,
 )
+from permafrost_engine_tpu_torch.core.config import EngineConfig as TorchConfig
 
 _CFG = EngineConfig(max_ents=48, chunks_r=2, chunks_c=3, num_layers=4,
                     max_flocks=6, max_projectiles=20, field_slab_slots=8,
                     los_slab_slots=8, global_field_slots=2, max_factions=4)
+
+
+def _tcfg(cfg):
+    """The port's EngineConfig with the same fields as a JAX one."""
+    return TorchConfig(**dataclasses.asdict(cfg))
 
 
 def _assert_same_tree(ours: dict, theirs):
@@ -45,13 +53,13 @@ def _assert_same_tree(ours: dict, theirs):
 
 @pytest.mark.parametrize("seed", [0, 7])
 def test_init_state_matches_leaf_by_leaf(seed):
-    ours = state_to_numpy(tschema.init_state(_CFG, seed=seed, device="cpu"))
+    ours = state_to_numpy(tschema.init_state(_tcfg(_CFG), seed=seed, device="cpu"))
     theirs = jax.device_get(jschema.init_state(_CFG, seed=seed))
     _assert_same_tree(ours, theirs)
 
 
 def test_empty_deltas_match():
-    ours = tschema.empty_deltas(_CFG, device="cpu")
+    ours = tschema.empty_deltas(_tcfg(_CFG), device="cpu")
     theirs = jax.device_get(jschema.empty_deltas(_CFG))
     for f in dataclasses.fields(ours):
         got = getattr(ours, f.name).numpy()
@@ -83,4 +91,4 @@ def test_flags_bits_and_round_trip():
 def test_skinning_not_ported():
     cfg = dataclasses.replace(_CFG, skin_joints=4)
     with pytest.raises(NotImplementedError):
-        tschema.init_state(cfg, device="cpu")
+        tschema.init_state(_tcfg(cfg), device="cpu")

@@ -18,6 +18,7 @@ A fresh interpreter then runs a small war through the port with no JAX
 module loaded.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -25,6 +26,8 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
+torch.set_num_threads(1)
 
 from permafrost_engine_tpu.core.config import (
     COST_IMPASSABLE,
@@ -34,6 +37,7 @@ from permafrost_engine_tpu.core.config import (
     NavDomain,
 )
 from permafrost_engine_tpu.game.engine import Engine as JaxEngine
+from permafrost_engine_tpu_torch.core.config import EngineConfig as TorchConfig
 from permafrost_engine_tpu_torch.game.engine import Engine
 from test_combat import small_cfg as combat_cfg
 from test_engine_move import small_cfg as move_cfg
@@ -42,9 +46,14 @@ from test_engine_move import walled_cost
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _tcfg(cfg):
+    """The port's EngineConfig with the same fields as a JAX one."""
+    return TorchConfig(**dataclasses.asdict(cfg))
+
+
 def _pair(cfg, cost=None, war=True):
     engines = [JaxEngine(cfg, cost_base=cost),
-               Engine(cfg, device="cpu", cost_base=cost)]
+               Engine(_tcfg(cfg), device="cpu", cost_base=cost)]
     for eng in engines:
         eng.add_faction(0)
         eng.add_faction(1)
@@ -200,7 +209,7 @@ def test_move_across_blocker_cadence_tables_equal():
     portal edges and the squad replans once (rate-limited after that)."""
     cfg = move_cfg()
     engines = [JaxEngine(cfg, cost_base=walled_cost(cfg)),
-               Engine(cfg, device="cpu", cost_base=walled_cost(cfg))]
+               Engine(_tcfg(cfg), device="cpu", cost_base=walled_cost(cfg))]
     rng = np.random.default_rng(0)
     squad = (np.array([400.0, 100.0]) + rng.random((8, 2)) * 30
              ).astype(np.float32)
@@ -239,7 +248,7 @@ def test_move_across_blocker_cadence_tables_equal():
 _NO_JAX = """
 import sys
 import numpy as np
-from permafrost_engine_tpu.core.config import DiplomacyState, EngineConfig
+from permafrost_engine_tpu_torch.core.config import DiplomacyState, EngineConfig
 from permafrost_engine_tpu_torch.game.engine import Engine
 cfg = EngineConfig(max_ents=32, chunks_r=1, chunks_c=1, num_layers=1,
                    max_flocks=4, max_projectiles=16, field_slab_slots=8,
@@ -256,7 +265,8 @@ eng.step(360)
 kinds = {k for k, _ in eng.events}
 assert {"attack_start", "entity_death", "entity_removed"} <= kinds, kinds
 assert (eng.state.fog.state[0] == 2).any()
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "permafrost_engine_tpu"))
 assert not bad, bad
 print("ok")
 """
@@ -264,10 +274,11 @@ print("ok")
 
 def test_war_imports_no_jax():
     """A fresh interpreter (tests/conftest.py imports jax into this one)
-    fights a small war through the port without importing jax, jaxlib or
-    flax."""
+    fights a small war through the port without importing jax, jaxlib,
+    flax or anything of the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
+    env["OMP_NUM_THREADS"] = "1"
     res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -46,7 +46,6 @@ def main() -> int:
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
     import chip_smoke
     from permafrost_engine_tpu_torch import FRAME_HZ
     from permafrost_engine_tpu_torch.game.step import crowd_inputs
