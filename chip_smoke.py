@@ -18,9 +18,13 @@ package beside it. Phases, each printing its own line:
    both times, the sweeps the plain run took and the cluster size
    (``tools/profile_k2.py`` compares other cuts);
 3. kernel K1 (HRVO select) against its plain version, exact and fan mode,
-   on a real 3x3 window of the 10,256-slot battle scene: bit-equal on
-   every moving row (which implies the parity tests' bounds: median error
-   0, every row within 1e-4, the same violations); both times;
+   bit-equal on every row: of the edge scenes (``k1_edge_scene``: ties at
+   the 32nd neighbour, zero and NaN preferred velocities, static and
+   colliding neighbours, short and empty windows, C2 from 1 to 512, N 1 to
+   1,025) and of a real 3x3 window of the 10,256-slot battle scene (which
+   implies the parity tests' bounds); on the real window both times, the
+   bound at the shares of (candidate, cone) pairs these inputs take past
+   the sign test (the sqrt share) and inside;
 4. the march: two 5,000-unit armies spawned and ordered across the
    battle map (as ``bench.py``'s ``build_battle(5000, terrain=True)``,
    with no war), 360 frames stepped; both kernels' launch counters (reset
@@ -73,10 +77,12 @@ SUBSTEP_FRAMES = 60
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 33.5e12
 # K2's work per tile per sweep: 8 candidate adds and 8 mins (the diagonal
-# step cost is computed once); K1's per cone test, counted from csrc/hrvo.cu
-# without the per-cone terms a kernel can hoist: ~35 operations, none fused
+# step cost is computed once). K1's per (candidate, valid cone) pair with the
+# cone-only terms hoisted (csrc/hrvo.cu): operations every pair needs, more
+# where the sign test lets it be inside (|w| and its sqrt), more where it is
+# inside (the violation term); none fused
 K2_OPS_PER_TILE_SWEEP = 16
-K1_OPS_PER_CONE_TEST = 35
+K1_OPS_PER_CONE_TEST = {"exact": (10, 16, 3), "fan": (5, 11, 2)}
 
 
 def log(msg: str) -> None:
@@ -208,6 +214,63 @@ def k2_batches(cost):
     }
 
 
+K1_ROW_KINDS = ("random", "ties", "vpref_zero", "static", "colliding",
+                "ten_valid", "none_valid", "vpref_nan")
+# (rows N, window width C2, kind of row 0); row i is of kind (first + i) % 8
+K1_EDGE_SHAPES = ((1, 1, 0), (1, 144, 7), (7, 20, 0), (7, 160, 1),
+                  (7, 512, 2), (1025, 144, 0), (1025, 512, 3))
+
+
+def k1_edge_scene(n: int, c2: int, first: int = 0, seed: int = 0):
+    """K1's positional arguments (numpy) for N rows of window width C2,
+    built to corner the kernel: row i is of kind ``K1_ROW_KINDS[(first + i)
+    % 8]``. ``random``: neighbours within 15 u, 85% valid, 20% static;
+    ``ties``: integer offsets at squared distances 25 or 100 (exact in any
+    rounding), so equal distances straddle the 32nd/33rd neighbour and
+    duplicate positions abound; ``vpref_zero``: every fan candidate is the
+    same zero velocity (score ties go to the lowest index); ``static``: every
+    neighbour static; ``colliding``: every neighbour nearer than the combined
+    radius; ``ten_valid``: 10 valid candidates; ``none_valid``: none;
+    ``vpref_nan``: a NaN preferred velocity (every score NaN)."""
+    rng = np.random.default_rng(seed)
+    pos = np.round(rng.uniform(20.0, 80.0, (n, 2))).astype(np.float32)
+    vel = rng.uniform(-1.0, 1.0, (n, 2)).astype(np.float32)
+    radius = np.ones(n, np.float32)
+    vpref = rng.uniform(-1.5, 1.5, (n, 2)).astype(np.float32)
+    max_speed = np.full(n, 2.0, np.float32)
+    ang = rng.uniform(0.0, 2.0 * np.pi, (n, c2))
+    dist = 15.0 * np.sqrt(rng.uniform(0.0, 1.0, (n, c2)))
+    off = np.stack([dist * np.cos(ang), dist * np.sin(ang)], -1)
+    cand_vel = rng.uniform(-1.0, 1.0, (n, c2, 2)).astype(np.float32)
+    cand_rad = rng.uniform(0.5, 1.5, (n, c2)).astype(np.float32)
+    cand_valid = rng.random((n, c2)) < 0.85
+    cand_static = rng.random((n, c2)) < 0.2
+    ring = np.array([(3, 4), (4, 3), (5, 0), (0, 5)], np.float64)
+    ring = np.concatenate([ring * s for s in ((1, 1), (-1, 1), (1, -1), (-1, -1))])
+    for i in range(n):
+        kind = K1_ROW_KINDS[(first + i) % len(K1_ROW_KINDS)]
+        if kind == "ties":
+            pick = ring[rng.integers(0, len(ring), c2)]
+            off[i] = pick * np.where(rng.random(c2) < 0.2, 1.0, 2.0)[:, None]
+            cand_rad[i] = 1.0
+        elif kind == "vpref_zero":
+            vpref[i] = 0.0
+        elif kind == "static":
+            cand_static[i] = True
+        elif kind == "colliding":
+            off[i] *= (rng.uniform(0.3, 1.9, c2) / np.maximum(dist[i], 1e-3))[:, None]
+        elif kind == "ten_valid":
+            cand_valid[i] = False
+            cand_valid[i, rng.permutation(c2)[:10]] = True
+        elif kind == "none_valid":
+            cand_valid[i] = False
+        elif kind == "vpref_nan":
+            vpref[i] = np.nan
+    cand_pos = (pos[:, None, :] + off).astype(np.float32)
+    return (pos, vel, radius, vpref, max_speed, cand_pos, cand_vel, cand_rad,
+            cand_valid, cand_static)
+
+
 def phase_k2(dev, cost):
     """K2 vs plain at the main path's shapes (see ``k2_batches``), through
     the wrapper the path calls, at its cut (``plan``: 4 blocks per chunk,
@@ -247,50 +310,93 @@ def phase_k2(dev, cost):
     return out
 
 
-def phase_k1(dev):
-    """K1 vs plain on a real window: the battle scene 60 frames into the
-    march, K1's exact inputs at that substep."""
+def k1_live_window(dev):
+    """K1's exact inputs on a real window: the battle scene 60 frames into
+    the march. Returns (args, moving mask)."""
     from permafrost_engine_tpu_torch.game.step import crowd_inputs
-    from permafrost_engine_tpu_torch.ops.crowd_cuda import (
-        hrvo_select_cuda, hrvo_select_plain)
 
     eng, _a, _b, _g = build_battle(dev)
     eng.step(60)
     x = crowd_inputs(eng.cfg, eng.state)
-    args = x["hrvo_args"]
-    moving = x["moving_mask"]
+    return x["hrvo_args"], x["moving_mask"]
+
+
+def rows_differ(a, b):
+    """bool[N]: rows that differ, comparing as torch.equal does (-0 equals
+    +0) with NaN equal to NaN."""
+    return ~((a == b) | (torch.isnan(a) & torch.isnan(b))).all(1)
+
+
+def phase_k1(dev):
+    """K1 vs plain, exact and fan mode, on every row: the edge scenes
+    (``K1_EDGE_SHAPES``) and a real window; times and the bound on the
+    real window."""
+    from permafrost_engine_tpu_torch.ops.crowd_cuda import (
+        hrvo_select_cuda, hrvo_select_plain)
+
+    edge_rows = 0
+    for n, c2, first in K1_EDGE_SHAPES:
+        eargs = [torch.from_numpy(a).to(dev)
+                 for a in k1_edge_scene(n, c2, first, seed=n + c2)]
+        for exact in (True, False):
+            got = hrvo_select_cuda(*eargs, exact=exact)
+            want = hrvo_select_plain(*eargs, exact=exact)
+            torch.cuda.synchronize()
+            bad = int(rows_differ(got, want).sum())
+            check(bad == 0, f"K1 edge scene N={n} C2={c2} exact={exact}: "
+                  f"{bad} rows differ from the plain version")
+        edge_rows += n
+    log(f"phase 3 K1 edge scenes: {len(K1_EDGE_SHAPES)} shapes "
+        f"(N, C2 in {[s[:2] for s in K1_EDGE_SHAPES]}), {edge_rows} rows, "
+        f"exact and fan: bit-equal on every row")
+
+    args, moving = k1_live_window(dev)
     rows = int(moving.sum())
     check(rows > 0, "K1: moving rows in the window")
     n, c2 = args[5].shape[0], args[5].shape[1]
     nbytes = sum(a.numel() * a.element_size() for a in args) + n * 2 * 4
-    out = {}
+    out = dict(edge_shapes=[list(s) for s in K1_EDGE_SHAPES], edge_rows=edge_rows)
     # candidate velocities per row (csrc/hrvo.cu): 377 exact, 57 fan
     for mode, exact, nc in (("exact", True, 377), ("fan", False, 57)):
+        stats = {}
         got = hrvo_select_cuda(*args, exact=exact)
-        want = hrvo_select_plain(*args, exact=exact)
+        want = hrvo_select_plain(*args, exact=exact, stats=stats)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"K1 {mode}: finite")
-        err_m = torch.linalg.vector_norm(got - want, dim=1)[moving]
-        share = float((err_m < 1e-4).float().mean())
-        max_err = float(err_m.max())
-        check(torch.equal(got[moving], want[moving]),
-              f"K1 {mode}: bit-equal on moving rows (share within 1e-4 "
-              f"{share}, max err {max_err})")
+        differ = rows_differ(got, want)
+        diff_moving = int(differ[moving].sum())
+        diff_still = int(differ[~moving].sum())
+        err = torch.linalg.vector_norm(got - want, dim=1)
+        share = float((err[moving] < 1e-4).float().mean())
+        max_err = float(err.max())
+        check(diff_moving == 0 and diff_still == 0,
+              f"K1 {mode}: bit-equal on every row ({diff_moving} moving and "
+              f"{diff_still} other rows differ, max err {max_err})")
         ms = cuda_ms(lambda: hrvo_select_cuda(*args, exact=exact), 20)
         plain_ms = cuda_ms(lambda: hrvo_select_plain(*args, exact=exact), 3,
                            warmup=1)
-        # every row: distances and 32 arg-min rounds over the window, then
-        # every candidate velocity against every one of the 32 cones
-        ops = n * (4 * c2 + 32 * c2 + nc * 32 * K1_OPS_PER_CONE_TEST)
+        # every row: distances and 32 arg-min rounds over the window; then
+        # each candidate against each valid cone, at the shares of pairs
+        # these inputs take past the sign test and inside (csrc/hrvo.cu)
+        every, passed, inside = K1_OPS_PER_CONE_TEST[mode]
+        ops = (n * (5 * c2 + 32 * c2) + stats["pairs"] * every
+               + stats["passed"] * passed + stats["inside"] * inside)
         b_ms, b_by = bound(nbytes, ops)
+        pass_share = stats["passed"] / max(stats["pairs"], 1)
+        warp_share = stats["slots_passed"] / max(stats["slots"], 1)
         out[mode] = dict(rows=rows, share_1e4=share, max_abs_err=max_err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, ops=ops, bytes=nbytes)
+                         rows_differ_moving=diff_moving,
+                         rows_differ_other=diff_still, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         ops=ops, bytes=nbytes, pair_stats=stats,
+                         sqrt_share=pass_share, sqrt_share_warp=warp_share)
         log(f"phase 3 K1 {mode}: N={n} C2={c2} candidates={nc} "
-            f"moving={rows} bit-equal share_within_1e-4={share:.6f} "
+            f"moving={rows} bit-equal on all {n} rows, "
             f"max_abs_err={max_err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by})")
-    del eng
+            f"bound_ms={b_ms:.5f} ({b_by}, {ops / 1e9:.3f} GOP) "
+            f"pairs={stats['pairs']} sqrt_share={pass_share:.4f} "
+            f"(of 32-candidate slots {warp_share:.4f}) inside_share="
+            f"{stats['inside'] / max(stats['pairs'], 1):.4f}")
     return out
 
 
@@ -579,7 +685,7 @@ def main() -> int:
              source="permafrost_engine_tpu_torch/csrc/hrvo.cu",
              replaces="permafrost_engine_tpu/ops/crowd_pallas.py:315",
              launches=launches["k1"],
-             max_abs_err=max(v["max_abs_err"] for v in k1.values()),
+             max_abs_err=max(k1[m]["max_abs_err"] for m in ("exact", "fan")),
              ms=k1["exact"]["ms"], plain_ms=k1["exact"]["plain_ms"],
              bound_ms=k1["exact"]["bound_ms"], bound_by=k1["exact"]["bound_by"],
              library_ms=None),

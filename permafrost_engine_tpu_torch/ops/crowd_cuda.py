@@ -21,6 +21,11 @@ the same candidate expressions (the rotated fan, the edge projections, the free
 projections and the intersection points) and nothing else, which makes
 more than half of the picks bit-equal to both JAX paths on the CPU test
 scenes; every other expression rounds once per operation in both.
+
+Non-finite values follow the Pallas kernel's one-hot pick: a NaN score
+leaves no minimum, and a non-finite component of a candidate that is not
+picked makes that output component NaN (a NaN preferred velocity gives a
+NaN velocity, not zero); clamps keep a NaN, as ``jnp.maximum`` does.
 """
 
 from __future__ import annotations
@@ -55,11 +60,21 @@ def _f32(vals, dev):
 
 
 def hrvo_select_plain(pos, vel, radius, vpref, max_speed, cand_pos, cand_vel,
-                      cand_rad, cand_valid, cand_static, *, exact=False):
+                      cand_rad, cand_valid, cand_static, *, exact=False,
+                      stats=None):
     """Plain PyTorch K1: f32[N, 2] new per-tick velocities (callers apply
     their own active mask). Shapes: pos/vel/vpref [N,2], radius/max_speed
     [N], cand_pos/cand_vel [N,C2,2], cand_rad [N,C2], cand_valid and
-    cand_static bool[N,C2]."""
+    cand_static bool[N,C2].
+
+    ``stats`` (a dict, optional) receives the counts the kernel's cost
+    follows, over the candidates it tests (all but the intersections that
+    fall back to vpref, copies of candidate 0): ``pairs`` (candidate, valid
+    cone), ``passed`` (pairs whose sign test leaves them possibly inside, so
+    the test needs |w| and its sqrt), ``inside``; ``slots``, the kernel's
+    warp-wide sign tests (a slot of 32 packed candidates against a valid
+    cone), and ``slots_passed``, those in which some pair passed, so the
+    warp runs the rest of the test."""
     n, c2 = cand_valid.shape
     dev = pos.device
     k = MAX_NEIGHBOURS
@@ -166,6 +181,8 @@ def hrvo_select_plain(pos, vel, radius, vpref, max_speed, cand_pos, cand_vel,
               & rv[:, None, :] & upper)
         xs.append(torch.where(ok, fma(d1x, t1, p1x), vpx[:, :, None]
                               ).reshape(n, -1))
+        tested = torch.cat([ok.new_ones(n, 25 + 2 * KP), ok.reshape(n, -1),
+                            ok.new_ones(n, 2 * k)], 1)
         zs.append(torch.where(ok, fma(d1z, t1, p1z), vpz[:, :, None]
                               ).reshape(n, -1))
         wl = fma(vpz, lz, vpx * lx)
@@ -185,6 +202,13 @@ def hrvo_select_plain(pos, vel, radius, vpref, max_speed, cand_pos, cand_vel,
     count = torch.zeros(cx.shape, dtype=torch.int32, device=dev)
     first = torch.full(cx.shape, k, dtype=torch.int32, device=dev)
     inside_k = []
+    if stats is not None:
+        # the kernel tests the candidates that are not copies of vpref,
+        # packed in index order into slots of 32
+        if not exact:
+            tested = torch.ones_like(cx, dtype=torch.bool)
+        slot = (torch.cumsum(tested, 1) - 1).clamp(min=0) // 32
+        passed = slots_passed = 0
     for j in range(k):
         axk, azk = ax[:, j:j + 1], az[:, j:j + 1]
         kx, kz = phx[:, j:j + 1], phz[:, j:j + 1]
@@ -201,12 +225,25 @@ def hrvo_select_plain(pos, vel, radius, vpref, max_speed, cand_pos, cand_vel,
             inside = (wlen >= _EPS_REF) & (ldet >= tol) & (rdet <= -tol)
         else:
             inside = along > wlen * ct + _EPS
+        if stats is not None:
+            sign_ok = ((ldet >= 0.0) & (rdet <= 0.0)) if exact else along > _EPS
+            pj = sign_ok & nvalid[:, j:j + 1] & tested
+            passed += int(pj.sum())
+            hit = torch.zeros(n, (cx.shape[1] + 31) // 32, dtype=torch.int32,
+                              device=dev).scatter_add_(1, slot, pj.to(torch.int32))
+            slots_passed += int((hit > 0).sum())
         inside = inside & nvalid[:, j:j + 1]
         total = total + torch.where(inside, along - wlen * ct, zero)
         count += inside.to(torch.int32)
         if exact:
             first = torch.where((first == k) & inside, j, first)
             inside_k.append(inside)
+    if stats is not None:
+        stats.update(
+            pairs=int((tested.sum(1) * nvalid.sum(1)).sum()), passed=passed,
+            inside=int((count * tested).sum()),
+            slots=int(((tested.sum(1) + 31) // 32 * nvalid.sum(1)).sum()),
+            slots_passed=slots_passed)
     ex, ez = cx - vpx, cz - vpz
     dv = torch.sqrt(ex * ex + ez * ez)
     if exact:
@@ -228,6 +265,13 @@ def hrvo_select_plain(pos, vel, radius, vpref, max_speed, cand_pos, cand_vel,
     has = eq.any(dim=1, keepdim=True)
     nvx_ = torch.where(has, torch.take_along_dim(cx, idx, 1), zero)
     nvz_ = torch.where(has, torch.take_along_dim(cz, idx, 1), zero)
+    # the reference sums the one-hot pick times every candidate, so a
+    # non-finite component of a candidate it does not pick makes that
+    # component of the sum NaN (a NaN score anywhere already left no pick)
+    other = ~(has & (torch.arange(cx.shape[1], device=dev) == idx))
+    nan = torch.tensor(float("nan"), dtype=torch.float32, device=dev)
+    nvx_ = torch.where((other & ~torch.isfinite(cx)).any(1, keepdim=True), nan, nvx_)
+    nvz_ = torch.where((other & ~torch.isfinite(cz)).any(1, keepdim=True), nan, nvz_)
     if exact:
         sp = torch.sqrt(nvx_ * nvx_ + nvz_ * nvz_)
         f = ms / torch.clamp(sp, min=_EPS)

@@ -24,10 +24,17 @@ from permafrost_engine_tpu.core.config import MAX_NEIGHBOURS
 from permafrost_engine_tpu.ops import clearpath as jcp
 from permafrost_engine_tpu.ops.crowd_pallas import hrvo_select_pallas
 from permafrost_engine_tpu_torch.ops import clearpath as tcp
-from permafrost_engine_tpu_torch.ops.crowd_cuda import hrvo_select
+from permafrost_engine_tpu_torch.ops.crowd_cuda import (hrvo_select,
+                                                        hrvo_select_plain)
 from test_crowd_pallas import build_scene, hrvo_score, xla_reference
+import chip_smoke
 
 MEASURED_SHARE = 1.0
+# chip_smoke.py's edge-scene shapes, at most 64 rows; the largest error
+# against the Pallas kernel measured on them is 4.3e-7 (exact mode)
+EDGE_SHAPES = [(min(n, 64), c2, first)
+               for n, c2, first in chip_smoke.K1_EDGE_SHAPES]
+EDGE_TOL = 1e-6
 
 
 def _t(arrays):
@@ -104,6 +111,47 @@ def test_k1_rejects_other_devices():
         ((2, 3), torch.float32), ((2, 3), torch.bool), ((2, 3), torch.bool))]
     with pytest.raises(RuntimeError):
         hrvo_select(*args)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("n,c2,first", EDGE_SHAPES)
+def test_k1_edge_scenes_match_pallas(n, c2, first, exact):
+    """chip_smoke.py's K1 edge scenes (ties at the 32nd/33rd neighbour,
+    zero and NaN preferred velocities, static, colliding, short and empty
+    windows) against the Pallas kernel in interpret mode, every row: NaN
+    where it is NaN (a NaN preferred velocity), equal elsewhere up to the
+    ulp-level rounding of XLA's own contractions."""
+    scene = chip_smoke.k1_edge_scene(n, c2, first, seed=n + c2)
+    want = np.asarray(hrvo_select_pallas(
+        *[jnp.asarray(a) for a in scene], interpret=True, exact=exact))
+    got = hrvo_select(*_t(scene), exact=exact).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    err = np.linalg.norm(np.nan_to_num(got - want), axis=1)
+    assert np.median(err) == 0.0
+    assert err.max() <= EDGE_TOL, err.max()
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_k1_plain_pair_counts(exact):
+    """The plain version's pair counts (the kernel's bound and sqrt share):
+    the pairs of each valid cone with every tested candidate (exact mode
+    leaves out the intersections that fall back to vpref: the 136 pairs
+    i >= j and those whose rays do not meet), and each inside pair passed
+    the sign test first, so inside <= passed <= pairs."""
+    scene = chip_smoke.k1_edge_scene(16, 144, 0, seed=1)
+    stats = {}
+    plain = hrvo_select_plain(*_t(scene), exact=exact, stats=stats)
+    again = hrvo_select(*_t(scene), exact=exact)
+    np.testing.assert_array_equal(plain.numpy(), again.numpy())
+    nvalid = np.minimum(scene[8].sum(1), MAX_NEIGHBOURS).sum()
+    if exact:      # 57 fan and edge + 64 free always; up to 120 intersections
+        assert nvalid * 121 < stats["pairs"] < nvalid * 241
+    else:
+        assert stats["pairs"] == nvalid * 57
+    assert 0 < stats["inside"] <= stats["passed"] <= stats["pairs"]
+    assert stats["pairs"] <= 32 * stats["slots"] < stats["pairs"] + 32 * nvalid
+    assert stats["passed"] <= 32 * stats["slots_passed"]
+    assert stats["slots_passed"] <= stats["slots"]
 
 
 @pytest.mark.parametrize("seed,exact", [(0, False), (3, False), (0, True),
