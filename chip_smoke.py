@@ -41,7 +41,34 @@ package beside it. Phases, each printing its own line:
    ``VISIBLE`` fog tiles, and no position, velocity or hp is NaN. Prints
    ms per frame (march, contact, worst contact frame), ms per substep
    kind at contact, the chase-field rebuild through K2 (ms and field
-   count), the nav cadence's counters and peak memory.
+   count), the nav cadence's counters and peak memory;
+6. the combined-arms battle (BASELINE #5: ``bench.py``'s
+   ``build_battle(5000, terrain=True, full=True)`` then
+   ``place_midfight_structures``, with ``skin_joints=0``, the one cut):
+   per side a 4,360-unit ground corps (3,200 melee, 1,000 archers, 160
+   radius-2.5 siege) in one ``move_in_formation(RANK)``, 384 navy on the
+   water layer and 256 air, at war from the start. After 300 frames six
+   radius-10 buildings drop at the chokes (``set_structure_blocking``);
+   at the first death (within 1,800 frames) side 0's air gets
+   ``seek_enemies`` and side 1's air ``surround`` on side 0's first siege
+   unit; then 120 contact frames. Fails unless every corps unit holds a
+   distinct passable cell of its block and its flock is RANK, K2 launched
+   for chunks during each formation order and at the structure commit,
+   K2 is bit-equal to its plain version on the captured inputs of the
+   first formation install and of the structure relink, the footprints
+   are impassable on ground and water layers and untouched on air, chunks
+   were relinked and the nav version bumped, the seek flock holds a
+   whole-map field, whole-map K2 launches grew with the orders, the
+   surround flock closed on its target, K1's launches equal the movement
+   substeps, deaths, attack starts and projectile hits occurred, the
+   formation keep force is bit-equal over repeated evaluations on the
+   frame-300 state, and no position, velocity or hp is NaN. Prints a
+   digest of every position and velocity at frame 300 and at the end
+   (equal across runs of the same code), each formation order's seconds
+   (layout, auction, field install; the auction's rounds, bidders, cells
+   and whether the greedy fill ran), the commit frame's ms, ms per frame
+   (march, contact, worst contact frame), the seek and surround order
+   ms and peak memory.
 
 The script imports only the port and fails if any ``jax``/``jaxlib``/
 ``flax`` module or anything of the JAX package (``permafrost_engine_tpu``)
@@ -53,6 +80,8 @@ the last is ``{"ok": true, "device": {...}}``. Details go to
 """
 
 import concurrent.futures
+import contextlib
+import hashlib
 import importlib.metadata
 import json
 import os
@@ -70,6 +99,7 @@ FRAMES = 360
 WAR_MAX_FRAMES = 1800       # the first death must come within this
 CONTACT_FRAMES = 120
 SUBSTEP_FRAMES = 60
+COMBINED_MARCH_FRAMES = 300  # phase 6: frames before the buildings drop
 # the card's peak rates for a kernel's least time (NVIDIA's H100 SXM data
 # sheet): device memory bytes/s, and f32 operations/s outside the tensor
 # cores for operations that are not FMAs (adds, multiplies, mins, compares):
@@ -119,21 +149,23 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
                                        else "operations")
 
 
+def block(rng, x0, z0, n, files, dx=4.0, dz=3.0):
+    """bench.py's spawn block: `files` columns dx apart, rows dz apart,
+    each position jittered by up to half a unit from `rng`."""
+    fx = (np.arange(n) % files) * dx
+    fz = (np.arange(n) // files) * dz
+    x = x0 + fx + (rng.random(n) - 0.5)
+    z = z0 + fz + (rng.random(n) - 0.5)
+    return np.stack([x, z], 1).astype(np.float32)
+
+
 def spawn_blocks():
     """The two armies' spawn positions and ranged mask (rng seed 0), as
     bench.py's build_battle(5000, terrain=True) spawns them."""
     rng = np.random.default_rng(0)
-
-    def block(x0, z0, n, files, dx=4.0, dz=3.0):
-        fx = (np.arange(n) % files) * dx
-        fz = (np.arange(n) // files) * dz
-        x = x0 + fx + (rng.random(n) - 0.5)
-        z = z0 + fz + (rng.random(n) - 0.5)
-        return np.stack([x, z], 1).astype(np.float32)
-
     ranged = rng.random(N_PER_SIDE) < 0.2
-    return (block(200.0, 212.0, N_PER_SIDE, 25),
-            block(820.0, 212.0, N_PER_SIDE, 25), ranged)
+    return (block(rng, 200.0, 212.0, N_PER_SIDE, 25),
+            block(rng, 820.0, 212.0, N_PER_SIDE, 25), ranged)
 
 
 def build_battle(dev, war: bool = False):
@@ -615,7 +647,419 @@ def phase_war(dev):
     return res
 
 
+@contextlib.contextmanager
+def patched(*targets):
+    """Replace each (object, attribute, make) attribute by make(original)
+    for the block's duration."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+    for obj, name, make in targets:
+        setattr(obj, name, make(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def synced(times: dict, key: str, fn):
+    """fn, with each call's host time between two synchronizations added to
+    times[key] (seconds)."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times[key] = times.get(key, 0.0) + time.perf_counter() - t
+        return out
+    return run
+
+
+class K2Capture:
+    """Keeps the inputs and output of the first K2 call made while a label
+    is armed (``arm``), to hold K2 against its plain version on the path's
+    own inputs."""
+
+    def __init__(self):
+        self.armed = None
+        self.calls = {}
+
+    def wrap(self, fn):
+        def integrate(cost, seed_mask, seed_cost=None, *, max_iters=None):
+            out = fn(cost, seed_mask, seed_cost, max_iters=max_iters)
+            if self.armed is not None and self.armed not in self.calls:
+                self.calls[self.armed] = (
+                    cost.clone(), seed_mask.clone(),
+                    None if seed_cost is None else seed_cost.clone(),
+                    max_iters, out.clone())
+            return out
+        return integrate
+
+    def arm(self, label, fn):
+        def run(*args, **kw):
+            self.armed = label
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.armed = None
+        return run
+
+    def check(self, label) -> dict:
+        from permafrost_engine_tpu_torch.ops.flowfield import integrate_plain
+
+        check(label in self.calls, f"K2 inputs of the {label} captured")
+        cost, seed, seed_cost, max_iters, got = self.calls[label]
+        k, h, w = cost.shape
+        want = integrate_plain(cost, seed, seed_cost,
+                               max_iters=max_iters or 4 * max(h, w))
+        torch.cuda.synchronize()
+        finite = want < 1e30
+        err = float((got - want)[finite].abs().max()) if finite.any() else 0.0
+        check(torch.equal(got, want),
+              f"K2 on the {label}'s inputs: bit-equal (max err {err})")
+        return dict(k=k, h=h, w=w, max_abs_err=err)
+
+
+def spawn_combined(eng):
+    """bench.py's build_battle(5000, terrain=True, full=True) spawns (rng
+    seed 0), per side: a ground corps of 3,200 melee, 1,000 archers and
+    160 radius-2.5 siege (the 3x3-footprint layer), 384 navy on the water
+    layer and 256 air."""
+    from permafrost_engine_tpu_torch.core.config import NavDomain
+
+    rng = np.random.default_rng(0)
+    n_melee = int(N_PER_SIDE * 0.64)
+    n_arch = int(N_PER_SIDE * 0.20)
+    n_siege = int(N_PER_SIDE * 0.032)
+    n_navy = int(N_PER_SIDE * 0.0768)
+    n_air = N_PER_SIDE - n_melee - n_arch - n_siege - n_navy
+
+    def side(f, x_inf, x_siege, x_air, navy_z0):
+        archer = np.arange(n_melee + n_arch) >= n_melee
+        inf = eng.spawn_batch(
+            block(rng, x_inf, 212.0, n_melee + n_arch, 25), faction=f,
+            max_speed=20.0, is_ranged=archer,
+            attack_range=np.where(archer, 40.0, 5.0), vision_range=80.0,
+            hp=200.0)
+        siege = eng.spawn_batch(
+            block(rng, x_siege, 380.0, n_siege, 8, dx=7.0, dz=7.0), faction=f,
+            radius=2.5, max_speed=10.0, is_ranged=True, attack_range=50.0,
+            base_dmg=30.0, vision_range=90.0, hp=400.0)
+        navy = eng.spawn_batch(
+            block(rng, 452.0, navy_z0, n_navy, 8), faction=f,
+            domain=NavDomain.WATER, radius=1.5, max_speed=24.0,
+            is_ranged=True, attack_range=45.0, base_dmg=15.0,
+            vision_range=90.0, hp=300.0)
+        air = eng.spawn_batch(
+            block(rng, x_air, 420.0, n_air, 16), faction=f,
+            domain=NavDomain.AIR, radius=1.2, max_speed=32.0, is_ranged=True,
+            attack_range=30.0, vision_range=100.0, hp=150.0)
+        return dict(inf=inf, siege=siege, navy=navy, air=air)
+
+    return (side(0, x_inf=200.0, x_siege=160.0, x_air=120.0, navy_z0=400.0),
+            side(1, x_inf=820.0, x_siege=930.0, x_air=880.0, navy_z0=560.0))
+
+
+# bench.py's place_midfight_structures: six radius-10 buildings at the chokes
+STRUCTURE_SPOTS = np.array([[356.0, 280.0], [356.0, 744.0], [470.0, 330.0],
+                            [470.0, 700.0], [590.0, 512.0], [420.0, 512.0]],
+                           np.float32)
+STRUCTURE_RADIUS = 10.0
+
+
+def check_formation(eng, corps: list[int]) -> dict:
+    """Every unit of a corps holds a cell; per (layer, unit type) block the
+    cells are distinct and lie on passable tiles of the layer; the corps'
+    flocks are RANK formations."""
+    from permafrost_engine_tpu_torch import COST_IMPASSABLE
+    from permafrost_engine_tpu_torch.core.config import NAV_TILE_SIZE
+    from permafrost_engine_tpu_torch.game.formation import FormationType
+
+    e = eng.state.ents
+    slots = np.array([eng.uid_to_slot[u] for u in corps])
+    check(bool(e.has_formation_cell[torch.as_tensor(slots)].all()),
+          "every corps unit has a formation cell")
+    cells = e.formation_cell.cpu().numpy()[slots]
+    layers = e.layer.cpu().numpy()[slots]
+    types = np.array([eng.unit_type[u][1] for u in corps])
+    blocks = {}
+    for key in sorted(set(zip(layers.tolist(), types.tolist()))):
+        sel = (layers == key[0]) & (types == key[1])
+        c = cells[sel]
+        check(len(np.unique(c, axis=0)) == len(c),
+              f"block {key}: {len(c)} distinct cells")
+        r = (c[:, 1] // NAV_TILE_SIZE).astype(int)
+        k = (c[:, 0] // NAV_TILE_SIZE).astype(int)
+        check(bool((eng.nav.cost_base[key[0]][r, k] != COST_IMPASSABLE).all()),
+              f"block {key}: cells on passable tiles of layer {key[0]}")
+        blocks[f"layer{key[0]}_type{key[1]}"] = int(sel.sum())
+    fids = np.unique(e.flock.cpu().numpy()[slots])
+    check(bool((fids >= 0).all()) and bool(
+        (eng.state.flocks.formation.cpu().numpy()[fids]
+         == int(FormationType.RANK)).all()),
+          f"the corps' flocks {fids.tolist()} are RANK formations")
+    return blocks
+
+
+def check_structures(eng, rects) -> None:
+    """cost_base impassable over every footprint on the ground and water
+    layers, the terrain's on the air layers (device copy and host mirror)."""
+    from permafrost_engine_tpu_torch import COST_IMPASSABLE
+    from permafrost_engine_tpu_torch.core.config import NUM_FOOTPRINTS, NavDomain
+
+    cost = eng.state.nav.cost_base.cpu().numpy()
+    check(np.array_equal(cost, eng.nav.cost_base), "cost_base pushed")
+    air0 = int(NavDomain.AIR) * NUM_FOOTPRINTS
+    for r0, r1, c0, c1 in rects:
+        fp = cost[:air0, r0:r1 + 1, c0:c1 + 1]
+        check(bool((fp == COST_IMPASSABLE).all()),
+              f"footprint {(r0, r1, c0, c1)} impassable on ground and water")
+    check(np.array_equal(cost[air0:], eng.nav.terrain_cost[air0:]),
+          "air layers keep the terrain cost")
+
+
+def state_digest(eng) -> str:
+    """The first 16 hex digits of the SHA-256 of every slot's position and
+    velocity bits: equal across runs when the battle is reproducible."""
+    e = eng.state.ents
+    data = torch.cat([e.pos, e.vel], dim=1).cpu().numpy().tobytes()
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def check_keep_force_repeats(eng, evals: int = 8) -> int:
+    """The formation keep force (per-flock sums over a 4,360-unit corps)
+    evaluated ``evals`` times on the live state must be bit-equal: its sums
+    must not depend on the order the card adds them in."""
+    from permafrost_engine_tpu_torch.ops.boids import formation_keep_force
+
+    e, f = eng.state.ents, eng.state.flocks
+    args = (e.pos, e.vel, e.flock, e.formation_cell, e.has_formation_cell,
+            f.formation, eng.cfg.max_flocks)
+    outs = [formation_keep_force(*args).view(torch.int32) for _ in range(evals)]
+    check(bool((outs[0] != 0).any()), "the keep force acts at frame 300")
+    check(all(torch.equal(o, outs[0]) for o in outs[1:]),
+          f"the formation keep force is bit-equal over {evals} evaluations")
+    return evals
+
+
+def phase_combined(dev):
+    """The combined-arms battle (BASELINE #5, bench.py's build_battle(5000,
+    terrain=True, full=True) with place_midfight_structures) through the
+    port's Engine, with skin_joints=0: see the module docstring."""
+    from permafrost_engine_tpu_torch import DiplomacyState, EngineConfig, FRAME_HZ
+    from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
+    from permafrost_engine_tpu_torch.core.config import EntityFlags
+    from permafrost_engine_tpu_torch.game import engine as engine_mod
+    from permafrost_engine_tpu_torch.game.engine import Engine
+    from permafrost_engine_tpu_torch.game.formation import FormationType
+    from permafrost_engine_tpu_torch.nav import portals, service
+    from permafrost_engine_tpu_torch.ops import flowfield_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    cap = K2Capture()
+    t0 = time.perf_counter()
+    cfg = EngineConfig(max_ents=2 * N_PER_SIDE + 256)   # skin_joints=0
+    check(cfg.skin_joints == 0, "phase 6 runs without skinning")
+    eng = Engine(cfg, device=dev)
+    eng.load_map_data(make_battle_map())
+    eng.add_faction(0)
+    eng.add_faction(1)
+    eng.set_diplomacy(0, 1, DiplomacyState.WAR)
+    a, b = spawn_combined(eng)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    period = FRAME_HZ // cfg.move_hz
+    substeps = 0
+    seen = {"events": 0, "first_death": None}
+
+    def frame():
+        nonlocal substeps
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step(1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        substeps += eng.state.tick % period == 0
+        if seen["first_death"] is None and any(
+                k == "entity_death" for k, _ in eng.events[seen["events"]:]):
+            seen["first_death"] = eng.state.tick
+        seen["events"] = len(eng.events)
+        return dt
+
+    def count(kind):
+        return sum(1 for k, _ in eng.events if k == kind)
+
+    with patched((service, "integrate", cap.wrap),
+                 (portals, "integrate", cap.wrap),
+                 (portals, "update_portal_graph",
+                  lambda fn: cap.arm("structure relink", fn))):
+        # -- the orders: two formation moves, navies and air squadrons -------
+        orders = []
+        for side, goal in ((a, (820.0, 512.0)), (b, (200.0, 512.0))):
+            times, blocks = {}, []
+
+            def auction(fn, _blocks=blocks):
+                def run(units, cells, *, device, stats=None):
+                    st = {}
+                    t = time.perf_counter()
+                    out = fn(units, cells, device=device, stats=st)
+                    _blocks.append(dict(bidders=len(units), cells=len(cells),
+                                        rounds=st["rounds"],
+                                        greedy=st["greedy"],
+                                        s=time.perf_counter() - t))
+                    return out
+                return run
+
+            install = synced(times, "install", eng.nav.install_formation_field)
+            if not orders:
+                install = cap.arm("formation install", install)
+            k2 = flowfield_cuda.launches_chunk
+            with patched((engine_mod, "layout_cells",
+                          lambda fn: synced(times, "layout", fn)),
+                         (engine_mod, "assign_cells",
+                          lambda fn: synced(times, "auction", auction(fn))),
+                         (eng.nav, "install_formation_field",
+                          lambda fn, _i=install: _i)):
+                ok = synced(times, "total", eng.move_in_formation)(
+                    side["inf"] + side["siege"], goal, FormationType.RANK)
+            check(ok, "formation order laid cells")
+            k2_order = flowfield_cuda.launches_chunk - k2
+            check(k2_order > 0, f"K2 launched for chunks during the "
+                  f"formation order ({k2_order})")
+            blocks_n = check_formation(eng, side["inf"] + side["siege"])
+            orders.append(dict(s=times, blocks=blocks, k2_chunk=k2_order,
+                               cells_per_block=blocks_n))
+        check(eng.move(a["navy"], (468.0, 620.0)), "navy a order")
+        check(eng.move(b["navy"], (468.0, 404.0)), "navy b order")
+        check(eng.move(a["air"], (900.0, 512.0)), "air a order")
+        check(eng.move(b["air"], (140.0, 512.0)), "air b order")
+        formation_k2 = cap.check("formation install")
+
+        # -- march, then the buildings drop at the chokes --------------------
+        march = [frame() for _ in range(COMBINED_MARCH_FRAMES)]
+        keep_evals = check_keep_force_repeats(eng)
+        digest_300 = state_digest(eng)
+        sid = eng.spawn_batch(
+            STRUCTURE_SPOTS, faction=0, radius=STRUCTURE_RADIUS,
+            flags=int(EntityFlags.COLLISION | EntityFlags.BUILDING),
+            max_speed=0.0, hp=1000.0)
+        for u in sid:
+            eng.set_structure_blocking(u, True)
+        rects = [eng._structures[u] for u in sid]
+        ver, rebuilt = eng._nav_version, eng.nav.stats["chunks_rebuilt"]
+        k2 = flowfield_cuda.launches_chunk
+        commit_ms = 1e3 * frame()
+        k2_commit = flowfield_cuda.launches_chunk - k2
+        check(eng._nav_version == ver + 1, "the commit bumped _nav_version")
+        check(eng.nav.stats["chunks_rebuilt"] > rebuilt,
+              f"chunks relinked: {eng.nav.stats['chunks_rebuilt']}")
+        check(k2_commit > 0, f"K2 launched for chunks at the commit ({k2_commit})")
+        check_structures(eng, rects)
+        relink_k2 = cap.check("structure relink")
+
+        while seen["first_death"] is None:
+            check(len(march) + 1 < WAR_MAX_FRAMES,
+                  f"no death within {WAR_MAX_FRAMES} frames")
+            march.append(frame())
+
+        # -- at first blood: seek and surround orders ------------------------
+        live = [u for u in a["air"] if u in eng.uid_to_slot]
+        pack = [u for u in b["air"] if u in eng.uid_to_slot]
+        target = a["siege"][0]
+        k2_map = flowfield_cuda.launches_map
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        check(eng.seek_enemies(live), "seek_enemies order")
+        torch.cuda.synchronize()
+        seek_ms = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        check(eng.surround(pack, target), "surround order")
+        torch.cuda.synchronize()
+        surround_ms = 1e3 * (time.perf_counter() - t)
+        check(flowfield_cuda.launches_map > k2_map,
+              "K2 launched for whole maps by the orders")
+        seek_fid = int(eng.state.ents.flock[eng.uid_to_slot[live[0]]])
+        sur_fid = int(eng.state.ents.flock[eng.uid_to_slot[pack[0]]])
+        check(seek_fid in eng._seek_flocks
+              and int(eng.state.flocks.global_slot[seek_fid]) >= 0,
+              "the seek flock holds a whole-map field")
+        sur_slots = torch.as_tensor([eng.uid_to_slot[u] for u in pack],
+                                    device=dev)
+        tslot = eng.uid_to_slot[target]
+
+        def surround_dist():
+            p = eng.state.ents.pos
+            return float(torch.linalg.vector_norm(p[sur_slots] - p[tslot],
+                                                  dim=1).mean())
+
+        d0 = surround_dist()
+        contact = [frame() for _ in range(CONTACT_FRAMES)]
+        d1 = surround_dist()
+    counts = read_counts()
+    e = eng.state.ents
+    check(bool(torch.isfinite(e.pos).all() and torch.isfinite(e.vel).all()
+               and not torch.isnan(e.hp).any()), "no NaN in pos/vel/hp")
+    check(counts["k1"] == substeps and substeps > 0,
+          f"K1 launches {counts['k1']} == substeps {substeps}")
+    check(d1 < d0, f"the surround flock closed on its target {d0} -> {d1}")
+    digest_end = state_digest(eng)
+    ev = {k: count(k) for k in ("entity_death", "attack_start",
+                                "projectile_hit", "entity_removed")}
+    for k in ("entity_death", "attack_start", "projectile_hit"):
+        check(ev[k] > 0, f"{k} events: {ev}")
+    res = dict(
+        setup_s=setup_s, orders=orders, formation_k2=formation_k2,
+        relink_k2=relink_k2, commit_frame_ms=commit_ms, k2_commit=k2_commit,
+        chunks_rebuilt=eng.nav.stats["chunks_rebuilt"],
+        invalidations=eng.nav.stats["invalidations"],
+        march_frames=len(march), first_death_frame=seen["first_death"],
+        ms_per_frame_march=1e3 * sum(march) / len(march),
+        ms_per_frame_contact=1e3 * sum(contact) / len(contact),
+        max_ms_frame_contact=1e3 * max(contact),
+        seek_order_ms=seek_ms, surround_order_ms=surround_ms,
+        seek_fid=seek_fid, surround_fid=sur_fid,
+        surround_dist=[d0, d1], events=ev, counts=counts, substeps=substeps,
+        keep_force_evals=keep_evals, digest_frame_300=digest_300,
+        digest_end=digest_end,
+        counters=dict(eng.counters), nav_stats=dict(eng.nav.stats),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    for side, o in zip("ab", orders):
+        s = o["s"]
+        log(f"phase 6 formation order {side}: total_s={s['total']:.3f} "
+            f"(layout {s['layout']:.3f}, auction {s['auction']:.3f}, install "
+            f"{s['install']:.3f}, the move and the rest "
+            f"{s['total'] - s['layout'] - s['auction'] - s['install']:.3f}) "
+            "blocks " + "; ".join(
+                f"bidders={x['bidders']} cells={x['cells']} s={x['s']:.3f} "
+                f"rounds={x['rounds']} greedy_fallback={x['greedy'] > 0} "
+                f"(units {x['greedy']})"
+                for x in o["blocks"]) + f" k2_chunk={o['k2_chunk']}")
+    log(f"phase 6 combined arms: {eng.cfg.max_ents} slots, skin_joints=0 "
+        f"(the one cut), setup_s={setup_s:.3f}; K2 bit-equal to plain on the "
+        f"first formation install (K={formation_k2['k']}) and the structure "
+        f"relink (K={relink_k2['k']}); structure commit frame "
+        f"{commit_ms:.3f} ms (K2 chunk launches {k2_commit}, chunks_rebuilt="
+        f"{res['chunks_rebuilt']}); first death at frame "
+        f"{res['first_death_frame']}, orders after frame {len(march) + 1}")
+    log(f"phase 6 ms_per_frame march={res['ms_per_frame_march']:.4f} "
+        f"contact={res['ms_per_frame_contact']:.4f} (max "
+        f"{res['max_ms_frame_contact']:.4f}); seek order {seek_ms:.3f} ms, "
+        f"surround order {surround_ms:.3f} ms, surround distance "
+        f"{d0:.1f}->{d1:.1f}; launches={counts} (k1 = substeps), events={ev}; "
+        f"max_memory_allocated={res['max_memory_allocated']}")
+    log(f"phase 6 determinism: formation keep force bit-equal over "
+        f"{keep_evals} evaluations; pos/vel digest at frame "
+        f"{COMBINED_MARCH_FRAMES} {digest_300}, at the end {digest_end}; "
+        f"projectile hits {ev['projectile_hit']}, surround distance "
+        f"{d0!r}->{d1!r}")
+    log("phase 6 cadence counters (ms): " + " ".join(
+        f"{k}={v:.3f}" for k, v in res["counters"].items()))
+    return res
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -657,17 +1101,24 @@ def main() -> int:
     k1 = phase_k1(dev)
     sl = phase_slice(dev)
     war = phase_war(dev)
+    combined = phase_combined(dev)
 
+    wall_s = time.perf_counter() - t_start
+    log(f"phases 0-6 wall_s={wall_s:.1f}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(device=smi[0], torch=torch.__version__,
                        cuda=torch.version.cuda, nvcc=nvcc_ver, triton=triton_ver,
                        build_s=builds, k2=k2, k1=k1, slice=sl, war=war,
+                       combined=combined, wall_s=wall_s,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
+    # phase 6's captured K2 calls (formation install, structure relink)
+    captured = [combined["formation_k2"], combined["relink_k2"]]
+
     def k2_row(shape_class, batch, launches):
         b = k2[batch]
-        errs = [v["max_abs_err"] for v in k2.values()
+        errs = [v["max_abs_err"] for v in list(k2.values()) + captured
                 if (v["h"], v["w"]) == (b["h"], b["w"])]
         return dict(name=f"K2 flow-field integration ({shape_class})",
                     route="cuda",
@@ -677,7 +1128,8 @@ def main() -> int:
                     plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
                     bound_by=b["bound_by"], library_ms=None)
 
-    launches = {k: sl["counts"][k] + war["counts"][k] for k in sl["counts"]}
+    launches = {k: sl["counts"][k] + war["counts"][k] + combined["counts"][k]
+                for k in sl["counts"]}
     kernels = [
         k2_row("64x64 chunks", "portal_spans", launches["k2_chunk"]),
         k2_row("256x256 map", "map_layer0", launches["k2_map"]),

@@ -14,11 +14,16 @@ JAX-free modules it needs are its own copies, under the same names:
 ``utils/native.py``, which builds the repository's ``native/pf_native.cpp``
 into the port's ``_build/``.
 
-Ported so far: the move-order -> flow-field -> movement-substep path and
-the war path (``game/engine.Engine``: ``spawn_batch``, ``move``,
-``set_diplomacy``, ``step``): combat, projectiles, corpses, fog of war
-(with the height-aware shadowcaster), per-(faction, layer) chase fields
-and the 60-frame nav cadence.
+Ported so far: the move-order -> flow-field -> movement-substep path, the
+war path and the combined-arms orders (``game/engine.Engine``:
+``spawn_batch``, ``move``, ``move_in_formation``, ``seek_enemies``,
+``surround``, ``set_structure_blocking``, ``set_diplomacy``, ``step``):
+combat, projectiles, corpses, fog of war (with the height-aware
+shadowcaster), per-(faction, layer) chase fields, RANK/COLUMN formations
+(``game/formation.py`` with the auction of ``ops/assignment.py``),
+structures with incremental portal-graph updates, and the 60-frame nav
+cadence. Not yet: skinning, sessions, the ``pf`` script surface, the
+host subsystems and rendering.
 
 The shared names a caller of the port needs are re-exported here, so a
 driver script imports only this package.

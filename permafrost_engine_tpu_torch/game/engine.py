@@ -9,21 +9,24 @@ every ``drain_period`` frames, and runs the nav cadence every
 
 Ported: ``__init__``, ``set_cost_base``, ``load_map_data`` (heights and the
 fog's ``tile_height``), ``add_faction``, ``set_diplomacy``, ``set_stance``,
-``spawn_batch``, ``despawn``, ``move`` (with stray-chunk field extension
-and ring-slot arrival destinations), ``stop``, ``step``, ``flush_deltas``,
-``pos_of``, ``movestate_of``, and the war half of ``_host_systems_tick``:
-per-(faction, layer) chase fields, stray-chunk extensions, blocker
-snapshots and rate-limited, detour-checked blocker replans, each fed by the
-snapshot taken one cadence earlier, as in the JAX engine. Events go to
-``events`` and the ``EventBus`` (``bus``), as in the JAX engine; the
-cadence's host times go to ``counters``.
+``spawn_batch`` (with the ``unit_type`` registry), ``despawn``, ``move``
+(with stray-chunk field extension and ring-slot arrival destinations),
+``move_in_formation`` (per-(layer, unit type) subformation blocks, cells
+assigned by the auction, cell-seeded arrival fields), ``seek_enemies``,
+``surround``, ``refresh_seek_fields``, ``set_structure_blocking`` (stamps
+committed by ``_commit_nav`` before each frame and order), ``stop``,
+``step``, ``flush_deltas``, ``pos_of``, ``movestate_of``, and the nav
+cadence of ``_host_systems_tick``: seek-flock and per-(faction, layer)
+chase fields in one batch, stray-chunk extensions, blocker snapshots and
+rate-limited, detour-checked blocker replans, each fed by the snapshot
+taken one cadence earlier, as in the JAX engine. Events go to ``events``
+and the ``EventBus`` (``bus``), as in the JAX engine; the cadence's host
+times go to ``counters``.
 
-Not ported yet, and absent (no method returns quietly in their place):
-``seek_enemies``, ``surround`` and ``refresh_seek_fields`` (so the
-cadence has no seek-flock branch); formations (``move_in_formation``, unit
-types); structures; the scheduler's tasks; the host subsystems (economy,
-regions, selection, audio, animation); micro-batched stepping
-(``step_scan``); ``core/perf.py`` profiling.
+Not ported yet, and absent (no method returns quietly in their place): the
+scheduler's tasks; the host subsystems (economy, regions, selection, audio,
+animation); micro-batched stepping (``step_scan``); skinning;
+``core/perf.py`` profiling.
 """
 
 from __future__ import annotations
@@ -48,6 +51,12 @@ from permafrost_engine_tpu_torch.core.config import (
 )
 from permafrost_engine_tpu_torch.core.events import EventBus, EventType
 from permafrost_engine_tpu_torch.game.arrival import assign_ring_slots
+from permafrost_engine_tpu_torch.game.formation import (
+    FormationType,
+    assign_cells,
+    block_depth,
+    layout_cells,
+)
 from permafrost_engine_tpu_torch.game.step import make_tick
 from permafrost_engine_tpu_torch.nav.service import NavService
 from permafrost_engine_tpu_torch.state.schema import (
@@ -58,9 +67,9 @@ from permafrost_engine_tpu_torch.state.schema import (
 
 
 # the cadence's host-time counters (ms), as the JAX engine's perf counters
-_COUNTERS = ("blk_snapshot_ms", "blk_sig_fetch_ms", "chase_refresh_ms",
-             "field_batch_ms", "blk_occ_fetch_ms", "blk_extend_ms",
-             "blk_update_ms", "blk_route_ms", "blk_replan_ms")
+_COUNTERS = ("blk_snapshot_ms", "blk_sig_fetch_ms", "seek_refresh_ms",
+             "chase_refresh_ms", "field_batch_ms", "blk_occ_fetch_ms",
+             "blk_extend_ms", "blk_update_ms", "blk_route_ms", "blk_replan_ms")
 
 
 def _chunk_cells(pos: torch.Tensor, cr: int, cc: int):
@@ -114,10 +123,10 @@ def _faction_layer_counts(alive, hp, faction, layer, *, f_n: int, l_n: int):
 
 
 class Engine:
-    """The port's engine on one explicit device (``"cpu"`` or ``"cuda"``);
-    see the module docstring for what is and is not ported."""
+    """The port's engine on one device, the card unless the caller asks for
+    ``"cpu"``; see the module docstring for what is and is not ported."""
 
-    def __init__(self, cfg: EngineConfig, *, device, seed: int = 0,
+    def __init__(self, cfg: EngineConfig, *, device="cuda", seed: int = 0,
                  cost_base: np.ndarray | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -134,6 +143,9 @@ class Engine:
         self._next_uid = 1
         self._free_slots = list(range(cfg.max_ents - 1, -1, -1))
         self.uid_to_slot: dict[int, int] = {}
+        # uid -> (formation_priority, unit type): subformation grouping
+        # (ref: Entity_TypeID + S_FormationPriority, py_script.c:4746-4784)
+        self.unit_type: dict[int, tuple[int, int]] = {}
         self._slot_uid = np.zeros(cfg.max_ents, np.int64)
         self._free_flocks = list(range(cfg.max_flocks - 1, -1, -1))
         self.events: list[tuple[str, dict]] = []
@@ -147,7 +159,14 @@ class Engine:
         self._sigs_inflight = None      # (frame, snapshot) of the last cadence
         self._field_sigs: dict = {}     # field key -> (versions, sigs) built
         self._blocker_replan_frame: dict[int, int] = {}
+        self._nav_version = 0           # structure commits rebuild fields
         self._diplo_version = 0         # a new war rebuilds even if nobody moved
+        # seek flocks: fid -> (faction, layer, global slot), and the frame
+        # each was registered (a lagged snapshot must not read it as dead)
+        self._seek_flocks: dict[int, tuple[int, int, int]] = {}
+        self._seek_created: dict[int, int] = {}
+        # structure uid -> stamped inclusive nav-tile rect (r0, r1, c0, c1)
+        self._structures: dict[int, tuple[int, int, int, int]] = {}
         # global-field slot -> owner (a flock id, or -(faction * L + layer
         # + 1) for a chase field), insertion-ordered: eviction is FIFO/LRU
         self._gslot_owner: dict[int, int] = {}
@@ -228,6 +247,39 @@ class Engine:
             fl.dest[fid] = torch.from_numpy(g).to(dev)
         return set(members_of)
 
+    # -- dynamic structures (ref: N_CutoutStaticObject nav.c:3326,
+    #    N_Update nav.c:2119-2206) ------------------------------------------------
+
+    def set_structure_blocking(self, uid: int, blocking: bool = True) -> None:
+        """Cut a building's footprint into (or out of) the static nav cost.
+        Stamps are host-only and accumulate; the world update (cost push,
+        portal-graph and island update, field invalidation, replans of the
+        flocks whose path crosses a dirty chunk) commits at the next frame
+        or order (``_commit_nav``)."""
+        cur = self._structures.get(uid)
+        if blocking and cur is None:
+            slot = self.uid_to_slot[uid]
+            pos = self.state.ents.pos[slot].cpu().numpy()
+            rad = float(self.state.ents.radius[slot])
+            rect = (int((pos[1] - rad) // NAV_TILE_SIZE),
+                    int((pos[1] + rad) // NAV_TILE_SIZE),
+                    int((pos[0] - rad) // NAV_TILE_SIZE),
+                    int((pos[0] + rad) // NAV_TILE_SIZE))
+            self._structures[uid] = rect
+            self.nav.stamp_structure(rect, +1)
+        elif not blocking and cur is not None:
+            del self._structures[uid]
+            self.nav.stamp_structure(cur, -1)
+
+    def _commit_nav(self) -> None:
+        """Apply pending structure stamps and replan the flocks whose path
+        crosses a dirty chunk; with nothing pending, a host-only no-op."""
+        state, dirty = self.nav.commit_structures(self.state)
+        if dirty is not None:
+            self.state = state
+            self._nav_version += 1        # cost edits invalidate seek fields
+            self._replan_flocks(dirty)
+
     def _goal_chunk_hood(self, fid: int) -> set[int]:
         """The flock's goal chunk, where its own crowd parks."""
         info = self.nav.flock_goal.get(fid)
@@ -288,8 +340,11 @@ class Engine:
                                   | EntityFlags.COMBATABLE),
                     domain: NavDomain = NavDomain.GROUND, vision_range=60.0,
                     attack_range=10.0, base_dmg=10.0, armour_pc=0.0,
-                    attack_period=10, is_ranged=False, stance=0) -> list[int]:
-        """Spawn M entities in one batch of indexed writes; returns UIDs."""
+                    attack_period=10, is_ranged=False, stance=0, unit_type=0,
+                    formation_priority=0) -> list[int]:
+        """Spawn M entities in one batch of indexed writes; returns UIDs.
+        ``unit_type`` and ``formation_priority`` (scalars or per entity)
+        group ``move_in_formation``'s subformations."""
         m = pos.shape[0]
         if len(self._free_slots) < m:
             raise RuntimeError("entity arena full")
@@ -299,6 +354,10 @@ class Engine:
         for u, s in zip(uids, slots):
             self.uid_to_slot[int(u)] = int(s)
         self._slot_uid[slots] = uids
+        types = np.broadcast_to(np.asarray(unit_type), (m,))
+        prios = np.broadcast_to(np.asarray(formation_priority), (m,))
+        for u, t, p in zip(uids, types, prios):
+            self.unit_type[int(u)] = (int(p), int(t))
 
         dev = self.device
 
@@ -339,6 +398,9 @@ class Engine:
         return [int(u) for u in uids]
 
     def despawn(self, uid: int) -> None:
+        if uid in self._structures:
+            self.set_structure_blocking(uid, False)
+        self.unit_type.pop(uid, None)
         slot = self.uid_to_slot.pop(uid)
         self.state.ents.alive[slot] = False
         self._free_slots.append(slot)
@@ -359,6 +421,7 @@ class Engine:
         (ref: G_Move_SetDest -> N_RequestPath, movement.c:4717, 930)."""
         if not uids:
             return False
+        self._commit_nav()   # orders see pending structure stamps
         if self.nav._blocker_snap is None or not self.nav.flock_chunks:
             self.nav.update_blockers(self.state.nav.blockers.cpu().numpy())
         slots = np.array([self.uid_to_slot[u] for u in uids], np.int64)
@@ -369,11 +432,7 @@ class Engine:
         for layer in np.unique(layers):
             group = slots[layers == layer]
             guids = [u for u, l in zip(uids, layers) if l == layer]
-            if not self._free_flocks:
-                self._reclaim_flocks()
-            if not self._free_flocks:
-                raise RuntimeError("flock table full")
-            fid = self._free_flocks.pop()
+            fid = self._new_flock()
             start = tuple(all_pos[group].mean(axis=0))
             groups.append((guids, group, int(layer), fid))
             reqs.append((fid, start, goal_xz, int(layer)))
@@ -387,6 +446,96 @@ class Engine:
                 self._extend_stray_chunks(fid, all_pos[group])
             ok_any |= ok
         return ok_any
+
+    def move_in_formation(self, uids: list[int], goal_xz,
+                          ftype: FormationType | None = None) -> bool:
+        """Move order with formation cells (ref: G_Formation_Arrange,
+        formation.c:354, 450-980): the move is issued first (one flock per
+        nav layer), then one subformation block per (layer, unit type),
+        sorted by (formation_priority, type) and stacked back from the
+        flock's effective goal, is laid out against terrain, occupancy
+        (blockers minus the ordered units' own tiles) and the goal's island;
+        the auction assigns units to cells. Later blocks see earlier blocks'
+        cells as occupied. Each layer's chunks then get cell-seeded fields.
+        Returns whether any block got cells."""
+        if ftype is None:
+            ftype = FormationType.RANK
+        if not uids:
+            return False
+        self._commit_nav()
+        cfg, dev = self.cfg, self.device
+        slots = np.array([self.uid_to_slot[u] for u in uids], np.int64)
+        all_pos = self.state.ents.pos.cpu().numpy()
+        all_rad = self.state.ents.radius.cpu().numpy()
+        layers = self.state.ents.layer.cpu().numpy()[slots]
+        goal = np.asarray(goal_xz, np.float32)
+        direction = goal - all_pos[slots].mean(axis=0)
+        if np.linalg.norm(direction) < 1e-3:
+            direction = np.array([1.0, 0.0], np.float32)
+        d_unit = direction / np.linalg.norm(direction)
+
+        if not self.move(uids, tuple(goal)):
+            return False
+        # each layer forms at its flock's effective destination (a
+        # cross-island goal retargets to the reachable side)
+        flock_of = self.state.ents.flock.cpu().numpy()
+        flock_dest = self.state.flocks.dest.cpu().numpy()
+        own_r = np.clip((all_pos[slots, 1] / NAV_TILE_SIZE).astype(int), 0,
+                        cfg.field_h - 1)
+        own_c = np.clip((all_pos[slots, 0] / NAV_TILE_SIZE).astype(int), 0,
+                        cfg.field_w - 1)
+        blockers_all = self.state.nav.blockers.cpu().numpy()
+        depth_off = 0.0
+        any_cells = False
+        slot_uid = {s: u for u, s in zip(uids, slots.tolist())}
+        for layer in sorted(set(int(x) for x in layers)):
+            lgroup = slots[layers == layer]
+            fid = int(flock_of[lgroup[0]])
+            eff_goal = flock_dest[fid].astype(np.float32) if fid >= 0 else goal
+            occupancy = blockers_all[layer].copy()
+            occupancy[own_r, own_c] = 0
+            isl_map = self.nav.islands(layer)
+            gr = int(np.clip(eff_goal[1] // NAV_TILE_SIZE, 0, cfg.field_h - 1))
+            gc = int(np.clip(eff_goal[0] // NAV_TILE_SIZE, 0, cfg.field_w - 1))
+            island = int(isl_map[gr, gc])
+            tkey = {int(s): self.unit_type.get(slot_uid.get(int(s)), (0, 0))
+                    for s in lgroup}
+            fid_cells: list[np.ndarray] = []
+            for tk in sorted(set(tkey.values())):
+                group = np.asarray([s for s in lgroup if tkey[int(s)] == tk],
+                                   np.int64)
+                spacing = max(float(all_rad[group].max()) * 3.0,
+                              ARRIVAL_THRESHOLD + 1.0)
+                cells = layout_cells(
+                    len(group), eff_goal - d_unit * depth_off, direction,
+                    ftype, spacing=spacing, cost_layer=self.nav.cost_base[layer],
+                    occupancy=occupancy, islands=isl_map,
+                    island=island if island >= 0 else None)
+                if len(cells) == 0:
+                    continue   # this block keeps its ring-slot dests
+                any_cells = True
+                assign = assign_cells(all_pos[group], cells, device=dev)
+                my_cells = cells[np.clip(assign, 0, len(cells) - 1)]
+                sl = torch.from_numpy(group).to(dev)
+                cj = torch.from_numpy(my_cells).to(dev)
+                e = self.state.ents
+                e.dest[sl] = cj
+                e.formation_cell[sl] = cj
+                e.has_formation_cell[sl] = True
+                # gates the formation keep and drag forces in the tick
+                self.state.flocks.formation[fid] = int(ftype)
+                # later blocks must not lay cells on top of this one
+                cr = np.clip((my_cells[:, 1] / NAV_TILE_SIZE).astype(int), 0,
+                             cfg.field_h - 1)
+                cc = np.clip((my_cells[:, 0] / NAV_TILE_SIZE).astype(int), 0,
+                             cfg.field_w - 1)
+                occupancy[cr, cc] = 1
+                fid_cells.append(my_cells)
+                depth_off += block_depth(cells, direction) + 2.0 * spacing
+            if fid_cells:
+                self.state = self.nav.install_formation_field(
+                    self.state, fid, layer, np.concatenate(fid_cells))
+        return any_cells
 
     def _reclaim_flocks(self) -> None:
         """Free active flocks no living entity references (the reference
@@ -408,6 +557,8 @@ class Engine:
             self.nav.los_mirror[f, :] = -1
             self.nav.flock_chunks.pop(f, None)
             self.nav.flock_goal.pop(f, None)
+            self._seek_flocks.pop(f, None)
+            self._seek_created.pop(f, None)
             self._field_sigs.pop(f, None)
             self._free_flocks.append(f)
         for gs, owner in list(self._gslot_owner.items()):
@@ -446,7 +597,7 @@ class Engine:
             dests, cells_on = np.broadcast_to(goal, (len(slots), 2)), False
         dev = self.device
         sl = torch.from_numpy(np.asarray(slots, np.int64)).to(dev)
-        d = torch.from_numpy(np.ascontiguousarray(dests, np.float32)).to(dev)
+        d = torch.from_numpy(np.array(dests, np.float32)).to(dev)
         e, fl = self.state.ents, self.state.flocks
         e.dest[sl] = d
         e.formation_cell[sl] = d
@@ -490,10 +641,123 @@ class Engine:
                 self._field_sigs.pop(("chase", fac, lay), None)
                 self.state.factions.chase_slot[fac, lay] = -1
             else:
+                self._seek_flocks.pop(old, None)
                 self._field_sigs.pop(old, None)
                 self.state.flocks.global_slot[old] = -1
         self._gslot_owner[gslot] = owner
         return gslot
+
+    def _new_flock(self) -> int:
+        """A free flock id; flocks no living entity references are
+        reclaimed when the table is full."""
+        if not self._free_flocks:
+            self._reclaim_flocks()
+        if not self._free_flocks:
+            raise RuntimeError("flock table full")
+        return self._free_flocks.pop()
+
+    # -- seek and surround orders ---------------------------------------------------
+
+    def seek_enemies(self, uids: list[int]) -> bool:
+        """Order units to hunt the nearest enemies through whole-map
+        enemy-seek fields (ref: G_Move_SetSeekEnemies, TARGET_ENEMIES): one
+        flock per nav layer, each with a field on its layer's costs,
+        rebuilt by the cadence while the flock lives."""
+        if not uids:
+            return False
+        slots = np.array([self.uid_to_slot[u] for u in uids], np.int64)
+        layers = self.state.ents.layer.cpu().numpy()[slots]
+        ok = False
+        for layer in np.unique(layers):
+            ok |= self._seek_enemies_layer(slots[layers == layer], int(layer))
+        return ok
+
+    def _seek_enemies_layer(self, slots: np.ndarray, layer: int) -> bool:
+        self._commit_nav()
+        fid = self._new_flock()
+        faction = int(self.state.ents.faction[int(slots[0])])
+        gslot = self._alloc_gslot(fid)
+        self.state = self.nav.build_enemy_seek_field(
+            self.state, faction, layer, gslot, flock_id=fid)
+        self._seek_flocks[fid] = (faction, layer, gslot)
+        self._seek_created[fid] = self._frame
+        self._start_field_flock(slots, fid, layer, MoveState.SEEK_ENEMIES,
+                                # never "arrives": combat stops them
+                                torch.tensor([self.cfg.world_w * 2.0,
+                                              self.cfg.world_h * 2.0],
+                                             device=self.device))
+        return True
+
+    def surround(self, uids: list[int], target_uid: int) -> bool:
+        """Converge on one entity through whole-map surround fields (ref:
+        G_Move_SetSurroundEntity, TARGET_ENTITY): one flock per nav layer,
+        each with a field on its layer's costs."""
+        if not uids or target_uid not in self.uid_to_slot:
+            return False
+        slots = np.array([self.uid_to_slot[u] for u in uids], np.int64)
+        layers = self.state.ents.layer.cpu().numpy()[slots]
+        ok = False
+        for layer in np.unique(layers):
+            ok |= self._surround_layer(slots[layers == layer], target_uid,
+                                       int(layer))
+        return ok
+
+    def _surround_layer(self, slots: np.ndarray, target_uid: int,
+                        layer: int) -> bool:
+        self._commit_nav()
+        fid = self._new_flock()
+        gslot = self._alloc_gslot(fid)
+        tslot = self.uid_to_slot[target_uid]
+        self.state = self.nav.build_surround_field(self.state, fid, tslot,
+                                                   layer, gslot)
+        self.state.flocks.target_ent[fid] = tslot
+        self._start_field_flock(slots, fid, layer, MoveState.SURROUND_ENTITY,
+                                self.state.ents.pos[tslot])
+        return True
+
+    def _start_field_flock(self, slots: np.ndarray, fid: int, layer: int,
+                           movestate: MoveState, dest: torch.Tensor) -> None:
+        """The entity and flock-table writes of a seek or surround order."""
+        sl = torch.from_numpy(slots).to(self.device)
+        e, fl = self.state.ents, self.state.flocks
+        e.flock[sl] = fid
+        e.movestate[sl] = int(movestate)
+        e.dest[sl] = dest.clone()
+        e.has_formation_cell[sl] = False
+        fl.active[fid] = True
+        fl.layer[fid] = layer
+        fl.formation[fid] = 0
+
+    def refresh_seek_fields(self, sigs: np.ndarray | None = None,
+                            active: np.ndarray | None = None,
+                            snap_frame: int | None = None,
+                            specs_out: list | None = None) -> None:
+        """Rebuild the live seek flocks' fields whose enemy factions changed
+        their chunk signature since the last build (ref: nav.c per-faction
+        blocker counts + N_FC enemy-seek invalidation). `active` and
+        `snap_frame` may come from the cadence's lagged snapshot: a flock
+        registered after it is not treated as dead. With `specs_out` the
+        specs are collected for one batched build."""
+        if active is None:
+            active = self.state.flocks.active.cpu().numpy()
+        if snap_frame is None:
+            snap_frame = self._frame
+        if sigs is None:
+            sigs = self._faction_chunk_sigs()
+        specs = [] if specs_out is None else specs_out
+        for fid, (faction, layer, gslot) in list(self._seek_flocks.items()):
+            if (not active[fid]
+                    and self._seek_created.get(fid, -1) < snap_frame):
+                del self._seek_flocks[fid]
+                self._field_sigs.pop(fid, None)
+                continue
+            if not self._enemies_changed(fid, faction, sigs):
+                continue
+            self._touch_gslot(gslot)
+            specs.append((faction, layer, gslot, fid))
+        if specs_out is None and specs:
+            self.state = self.nav.build_enemy_seek_fields_batch(self.state,
+                                                                specs)
 
     def _faction_chunk_sigs(self) -> np.ndarray:
         """Per-(faction, chunk) presence signatures (host copy)."""
@@ -510,9 +774,7 @@ class Engine:
         if not enemies:
             return False
         prev = self._field_sigs.get(key)
-        # (the JAX key also holds a nav version that structure commits
-        # bump; structures are not ported, so only diplomacy versions here)
-        ver = self._diplo_version
+        ver = (self._nav_version, self._diplo_version)
         if (prev is None or prev[0] != ver or any(
                 not np.array_equal(prev[1][g], sigs[g]) for g in enemies)):
             self._field_sigs[key] = (ver, sigs.copy())
@@ -567,11 +829,13 @@ class Engine:
     # -- stepping -----------------------------------------------------------------
 
     def step(self, n_frames: int = 1) -> None:
-        """Advance n 60 Hz frames: each frame runs the tick, drains events
-        every `drain_period` frames and runs the nav cadence; events are
-        drained once more at the end of the call."""
+        """Advance n 60 Hz frames: each frame commits pending structure
+        stamps, runs the tick, drains events every `drain_period` frames and
+        runs the nav cadence; events are drained once more at the end of
+        the call."""
         for _ in range(n_frames):
             self._frame += 1
+            self._commit_nav()
             self.state, self._acc = self._tick_fn(self.state, self._acc)
             if self._frame % self.drain_period == 0:
                 self.flush_deltas()
@@ -587,33 +851,35 @@ class Engine:
 
     def _host_systems_tick(self) -> None:
         """The nav cadence, every ``seek_refresh_period`` frames while a
-        faction is at war or a path flock lives (the JAX engine's
-        ``_host_systems_tick`` without its seek flocks and host subsystems).
+        seek flock lives, a faction is at war or a path flock lives (the JAX
+        engine's ``_host_systems_tick`` without its host subsystems).
 
         Each cadence takes a snapshot on the device (chunk signatures, the
-        per-(faction, layer) counts at war, and every other period the
-        blockers and the flocks' chunk occupancy) and acts on the snapshot
-        taken ONE cadence earlier: the JAX engine fetches it asynchronously
-        and consumes it a period late, and parity depends on the lag. From
-        that snapshot: chase fields whose enemies moved are rebuilt in one
-        batch; flock members in chunks off their path get fields (K2); the
+        flocks' active flags, the per-(faction, layer) counts at war, and
+        every other period the blockers and the flocks' chunk occupancy)
+        and acts on the snapshot taken ONE cadence earlier: the JAX engine
+        fetches it asynchronously and consumes it a period late, and parity
+        depends on the lag. From that snapshot: seek-flock fields and chase
+        fields whose enemies moved are rebuilt in one batch (seek specs
+        first); flock members in chunks off their path get fields (K2); the
         blocker grid is installed, and a flock whose corridor flipped
         replans at most every 4 periods, only when the flip is outside its
         goal chunk and changes whether its route needs a detour."""
         period = self.seek_refresh_period
         if self._frame % period:
             return
-        cfg, cnt = self.cfg, self.counters
+        cfg = self.cfg
         t0 = time.perf_counter()
         any_war = bool(np.any(self._host_diplomacy == DiplomacyState.WAR))
         want_blockers = (bool(self.nav.flock_chunks)
                          and self._frame % (2 * period) == 0)
-        if not (any_war or want_blockers):
+        if not (self._seek_flocks or any_war or want_blockers):
             return
         e = self.state.ents
         snap = (
             _chunk_sig_kernel(e.pos, e.alive, e.faction, f_n=cfg.max_factions,
                               cr=cfg.chunks_r, cc=cfg.chunks_c),
+            self.state.flocks.active.clone(),
             self.state.nav.blockers.clone() if want_blockers else None,
             _faction_layer_counts(e.alive, e.hp, e.faction, e.layer,
                                   f_n=cfg.max_factions, l_n=cfg.num_layers)
@@ -625,10 +891,14 @@ class Engine:
         t0 = self._timed("blk_snapshot_ms", t0)
         if prev is None:
             return
-        _snap_frame, (dsig, dblk, dflc, docc) = prev
+        snap_frame, (dsig, dact, dblk, dflc, docc) = prev
         sigs = dsig.cpu().numpy()
         t0 = self._timed("blk_sig_fetch_ms", t0)
         field_specs: list = []
+        if self._seek_flocks:
+            self.refresh_seek_fields(sigs, dact.cpu().numpy(), snap_frame,
+                                     specs_out=field_specs)
+            t0 = self._timed("seek_refresh_ms", t0)
         if any_war:
             self._refresh_chase_fields(
                 sigs, dflc.cpu().numpy() if dflc is not None else None,
@@ -716,6 +986,8 @@ class Engine:
             emit("attack_start", EventType.ATTACK_START, u)
         for u in uid_arr[h["corpse_expired"]]:
             u = int(u)
+            if u in self._structures:   # a destroyed building unblocks nav
+                self.set_structure_blocking(u, False)
             slot = self.uid_to_slot.pop(u, None)
             if slot is not None:
                 self._free_slots.append(slot)

@@ -176,6 +176,110 @@ def build_portal_graph(cost_layer: np.ndarray, chunks_r: int, chunks_c: int,
     return PortalGraph(portals=portals, adj=adj, by_chunk=by_chunk)
 
 
+def update_portal_graph(graph: PortalGraph, cost_layer: np.ndarray,
+                        dirty_chunks: set[tuple[int, int]], chunks_r: int,
+                        chunks_c: int, *, device) -> tuple[PortalGraph, int]:
+    """Rebuild a portal graph after cost edits confined to `dirty_chunks`
+    (ref: N_Update, src/navigation/nav.c:2119-2206): portals and links of
+    untouched chunks are carried over (pids compact), border runs are
+    recomputed only on borders touching a dirty chunk, and the dirty chunks
+    and their orthogonal neighbours are relinked with one batched
+    integration on `device` over the relinked portals' spans. Falls back to
+    a full build when a third of the map or more is dirty. Returns (new
+    graph, number of chunks relinked)."""
+    if len(dirty_chunks) * 3 >= chunks_r * chunks_c:
+        return (build_portal_graph(cost_layer, chunks_r, chunks_c,
+                                   device=device), chunks_r * chunks_c)
+
+    relink = set(dirty_chunks)
+    for r, k in dirty_chunks:
+        for n in ((r - 1, k), (r + 1, k), (r, k - 1), (r, k + 1)):
+            if 0 <= n[0] < chunks_r and 0 <= n[1] < chunks_c:
+                relink.add(n)
+
+    def touches_dirty(p: Portal) -> bool:
+        if p.chunk in dirty_chunks:
+            return True
+        return p.paired >= 0 and graph.portals[p.paired].chunk in dirty_chunks
+
+    passable = cost_layer != COST_IMPASSABLE
+    portals: list[Portal] = []
+    by_chunk: dict[tuple[int, int], list[int]] = {}
+    remap: dict[int, int] = {}
+
+    def add(chunk, side, lo, hi) -> Portal:
+        p = Portal(len(portals), chunk, side, lo, hi)
+        portals.append(p)
+        by_chunk.setdefault(chunk, []).append(p.pid)
+        return p
+
+    for p in graph.portals:
+        if not touches_dirty(p):
+            remap[p.pid] = add(p.chunk, p.side, p.lo, p.hi).pid
+    for old_pid, new_pid in remap.items():
+        portals[new_pid].paired = remap.get(graph.portals[old_pid].paired, -1)
+
+    # border runs again, only where a border touches a dirty chunk
+    for r in range(chunks_r - 1):
+        for c in range(chunks_c):
+            if (r, c) not in dirty_chunks and (r + 1, c) not in dirty_chunks:
+                continue
+            row_s = (r + 1) * FIELD_RES - 1
+            cols = slice(c * FIELD_RES, (c + 1) * FIELD_RES)
+            for lo, hi in _edge_runs(passable[row_s, cols], passable[row_s + 1, cols]):
+                a = add((r, c), "S", lo, hi)
+                b = add((r + 1, c), "N", lo, hi)
+                a.paired, b.paired = b.pid, a.pid
+    for r in range(chunks_r):
+        for c in range(chunks_c - 1):
+            if (r, c) not in dirty_chunks and (r, c + 1) not in dirty_chunks:
+                continue
+            col_e = (c + 1) * FIELD_RES - 1
+            rows = slice(r * FIELD_RES, (r + 1) * FIELD_RES)
+            for lo, hi in _edge_runs(passable[rows, col_e], passable[rows, col_e + 1]):
+                a = add((r, c), "E", lo, hi)
+                b = add((r, c + 1), "W", lo, hi)
+                a.paired, b.paired = b.pid, a.pid
+
+    adj: dict[int, list[tuple[int, float]]] = {p.pid: [] for p in portals}
+    for p in portals:
+        if p.paired >= 0:
+            adj[p.pid].append((p.paired, 1.0))
+    # carry over the intra-chunk links of chunks that are not relinked
+    inv = {v: k for k, v in remap.items()}
+    for p in portals:
+        if p.chunk in relink:
+            continue
+        old_pid = inv[p.pid]
+        old_pair = graph.portals[old_pid].paired
+        for q, w in graph.adj[old_pid]:
+            if q != old_pair and q in remap:
+                adj[p.pid].append((remap[q], w))
+
+    todo = [p for p in portals if p.chunk in relink]
+    if todo:
+        costs = np.empty((len(todo), FIELD_RES, FIELD_RES), np.uint8)
+        seeds = np.zeros((len(todo), FIELD_RES, FIELD_RES), bool)
+        for i, p in enumerate(todo):
+            cr, cc = p.chunk
+            costs[i] = cost_layer[cr * FIELD_RES:(cr + 1) * FIELD_RES,
+                                  cc * FIELD_RES:(cc + 1) * FIELD_RES]
+            t = p.span_tiles()
+            seeds[i, t[:, 0], t[:, 1]] = True
+        integ = integrate(torch.from_numpy(costs).to(device),
+                          torch.from_numpy(seeds).to(device)).cpu().numpy()
+        for i, p in enumerate(todo):
+            for qid in by_chunk[p.chunk]:
+                if qid == p.pid:
+                    continue
+                t = portals[qid].span_tiles()
+                d = integ[i, t[:, 0], t[:, 1]].min()
+                if d < INF_COST / 2:
+                    adj[p.pid].append((qid, float(d)))
+
+    return PortalGraph(portals=portals, adj=adj, by_chunk=by_chunk), len(relink)
+
+
 def _octile(a, b) -> float:
     dr, dc = abs(a[0] - b[0]), abs(a[1] - b[1])
     return max(dr, dc) + (SQRT2 - 1.0) * min(dr, dc)

@@ -15,19 +15,26 @@ src/navigation/fieldcache.c):
 Field keys are (layer, chunk, seed signature), so flocks sharing a goal or
 portal reuse fields (ref: fieldcache.h:53-167).
 
-Whole-map enemy-seek fields (the per-(faction, layer) chase fields combat
-chasers follow, ref: field.c:1209-1678) are built in one batch per
-refresh: ``build_enemy_seek_fields_batch``. Their 256x256 integration is
-an XLA op in the JAX package (``ff.integrate`` with a cap of 4*max(H, W)
-sweeps), the same Jacobi min-plus schedule as the Pallas kernel; here it
-goes through K2 like every chunk, one thread-block cluster per field.
+Whole-map fields (the per-(faction, layer) chase fields combat chasers
+follow and the seek-enemies flocks' fields, ref: field.c:1209-1678, built
+in one batch per refresh by ``build_enemy_seek_fields_batch``; surround
+fields toward one entity, ``build_surround_field``) are integrated at
+256x256. That integration is an XLA op in the JAX package
+(``ff.integrate`` with a cap of 4*max(H, W) sweeps), the same Jacobi
+min-plus schedule as the Pallas kernel; here it goes through K2 like every
+chunk, one thread-block cluster per field.
+
+Formation orders replace a flock's fields in the chunks holding its cells
+with cell-seeded fields (``install_formation_field``). Structures are
+stamped on the host (``stamp_structure``) and committed together
+(``commit_structures``): the effective costs are pushed, the built portal
+graphs are updated incrementally (``portals.update_portal_graph``, one K2
+launch over the relinked chunks) and the fields at dirty chunks dropped.
 
 The JAX version pads every batch to a small fixed set of sizes and
 pre-compiles them (``prewarm``, ``batch_buckets``, the seek batch's
 sentinel spec): that exists to avoid remote XLA compiles. Eager PyTorch has
-no compile per shape, so batches run at their own size. Not ported yet:
-surround fields, formation cell fields, structure stamps and their
-incremental portal-graph updates.
+no compile per shape, so batches run at their own size.
 """
 
 from __future__ import annotations
@@ -103,9 +110,11 @@ class NavService:
         self.device = torch.device(device)
         self.terrain_cost = cost_base.copy()
         self.cost_base = cost_base.copy()
-        # structure refcounts at ground resolution (no ported entry point
-        # stamps them yet; kept so the effective-cost rule is the JAX one)
+        # structure refcounts at ground resolution; footprint layers see them
+        # dilated (ref: N_CutoutStaticObject nav.c:3326)
         self.structure_ref = np.zeros((cfg.field_h, cfg.field_w), np.int32)
+        # chunks dirtied by structure stamps, awaiting commit_structures
+        self._pending_dirty: set[int] = set()
         self._graphs: dict[int, pt.PortalGraph] = {}
         self._islands: dict[int, np.ndarray] = {}
         self.flow_cache = LruSlab(cfg.field_slab_slots)
@@ -121,9 +130,9 @@ class NavService:
         self._blocker_epoch = 0
         self._edge_cache: dict[int, tuple[int, frozenset, frozenset]] = {}
         self.stats = {"hits": 0, "misses": 0, "requests": 0, "failed": 0,
-                      "retargeted": 0, "blocked_edges": 0,
-                      "blocker_replans": 0, "chunks_built": 0,
-                      "seek_batches": 0, "seek_fields": 0}
+                      "retargeted": 0, "invalidations": 0, "blocked_edges": 0,
+                      "blocker_replans": 0, "chunks_rebuilt": 0,
+                      "chunks_built": 0, "seek_batches": 0, "seek_fields": 0}
 
     # -- portal graphs and islands -------------------------------------------
 
@@ -190,6 +199,82 @@ class NavService:
                     if layer < self.cfg.num_layers:
                         eff[layer][dil > 0] = COST_IMPASSABLE
         self.cost_base = eff
+
+    # -- dynamic structures (ref: N_Update nav.c:2119-2206) --------------------
+
+    def stamp_structure(self, tile_rect: tuple[int, int, int, int],
+                        delta: int) -> None:
+        """Stamp (+1) or unstamp (-1) a structure footprint given as an
+        inclusive nav-tile rect (r0, r1, c0, c1). Host-only: the world
+        update waits for ``commit_structures``, and the dirty chunks are the
+        rect grown by the largest footprint dilation."""
+        cfg = self.cfg
+        r0, r1, c0, c1 = tile_rect
+        r0, c0 = max(0, r0), max(0, c0)
+        r1, c1 = min(cfg.field_h - 1, r1), min(cfg.field_w - 1, c1)
+        if r1 < r0 or c1 < c0:
+            return
+        self.structure_ref[r0:r1 + 1, c0:c1 + 1] += delta
+        np.clip(self.structure_ref, 0, None, out=self.structure_ref)
+        m = NUM_FOOTPRINTS - 1
+        for cr in range(max(0, r0 - m) // FIELD_RES,
+                        min(cfg.field_h - 1, r1 + m) // FIELD_RES + 1):
+            for cc in range(max(0, c0 - m) // FIELD_RES,
+                            min(cfg.field_w - 1, c1 + m) // FIELD_RES + 1):
+                self._pending_dirty.add(self._chunk_idx(cr, cc))
+
+    def commit_structures(self, state: GameState
+                          ) -> tuple[GameState, set[int] | None]:
+        """Apply the pending structure stamps: recompute the effective
+        costs and push them to the device, update the built portal graphs
+        of the ground and water layers incrementally, drop their islands and
+        every cached field at a dirty chunk. Returns (state, dirty chunk
+        indices), or (state, None) without touching the device when nothing
+        is pending."""
+        if not self._pending_dirty:
+            return state, None
+        dirty, self._pending_dirty = self._pending_dirty, set()
+        self._extend_failed.clear()
+        self._recompute_effective()
+        state.nav.cost_base = torch.from_numpy(self.cost_base).to(self.device)
+        cc_n = self.cfg.chunks_c
+        dirty_rc = {(d // cc_n, d % cc_n) for d in dirty}
+        air0 = int(NavDomain.AIR) * NUM_FOOTPRINTS
+        for layer in list(self._graphs):
+            if air0 <= layer < air0 + NUM_FOOTPRINTS:
+                continue
+            self._graphs[layer], n_relinked = pt.update_portal_graph(
+                self._graphs[layer], self.cost_base[layer], dirty_rc,
+                self.cfg.chunks_r, cc_n, device=self.device)
+            self.stats["chunks_rebuilt"] += n_relinked
+        # a cutout can split an island anywhere: relabel lazily
+        for layer in list(self._islands):
+            if not air0 <= layer < air0 + NUM_FOOTPRINTS:
+                del self._islands[layer]
+        self._edge_cache.clear()      # pids renumbered
+        self._goal_span_cache.clear()
+        return self._invalidate_chunk_fields(state, dirty), dirty
+
+    def _invalidate_chunk_fields(self, state: GameState,
+                                 dirty: set[int]) -> GameState:
+        """Drop cached flow fields at the dirty chunks and scrub every flock
+        row that points at their slots. LOS slices are cuts of whole-map
+        sightline fields, which a structure anywhere can block, so every
+        LOS entry drops."""
+        changed = False
+        for k in [k for k in self.flow_cache.order
+                  if self._chunk_idx(*k[1]) in dirty]:
+            slot = self.flow_cache.order.pop(k)
+            self.flow_cache.free.append(slot)
+            self.slot_mirror[self.slot_mirror == slot] = -1
+            changed = True
+            self.stats["invalidations"] += 1
+        if self.los_cache.order:
+            self.stats["invalidations"] += len(self.los_cache.order)
+            self.los_cache = LruSlab(self.cfg.los_slab_slots)
+            self.los_mirror[:, :] = -1
+            changed = True
+        return self._push_tables(state) if changed else state
 
     # -- live-unit blockers (ref: nav_data.h:142-158) -------------------------
 
@@ -713,6 +798,77 @@ class NavService:
 
         return self._push_tables(state)
 
+    def install_formation_field(self, state: GameState, flock_id: int,
+                                layer: int, cells_xy: np.ndarray) -> GameState:
+        """Replace the flock's fields in the chunks holding its formation
+        cells with cell-seeded fields: every cell tile seeds at cost 0, so
+        the final approach flows toward the formation's footprint and
+        around obstacles near it (ref: src/game/formation.c:354). Keys are
+        (layer, chunk, ("cells",) + sorted local tiles); the chunks to build
+        are integrated in one batched K2 launch over the chunk's cost with
+        blockers impassable except on seed tiles. Only the flock's row of
+        the slot table is pushed, unless a slab slot was evicted."""
+        cfg, dev = self.cfg, self.device
+        tiles = np.unique(np.stack([
+            np.clip(cells_xy[:, 1] // NAV_TILE_SIZE, 0,
+                    cfg.field_h - 1).astype(np.int64),
+            np.clip(cells_xy[:, 0] // NAV_TILE_SIZE, 0,
+                    cfg.field_w - 1).astype(np.int64)], 1), axis=0)
+        groups: dict[tuple[int, int], list[tuple[int, int]]] = {}
+        for r, c in tiles:
+            groups.setdefault(self._chunk_of_tile(int(r), int(c)),
+                              []).append((int(r), int(c)))
+
+        to_build, assignments = [], []
+        evicted_any = False
+        for chunk, ctiles in groups.items():
+            local = tuple(sorted((r % FIELD_RES) * FIELD_RES + (c % FIELD_RES)
+                                 for r, c in ctiles))
+            key = (layer, chunk, ("cells",) + local)
+            slot = self.flow_cache.get(key)
+            if slot is None:
+                self.stats["misses"] += 1
+                slot, evicted = self.flow_cache.put(key)
+                if evicted is not None:
+                    self.slot_mirror[self.slot_mirror == slot] = -1
+                    evicted_any = True
+                to_build.append((chunk, ctiles, slot))
+            else:
+                self.stats["hits"] += 1
+            assignments.append((chunk, slot))
+
+        if to_build:
+            seeds_np = np.zeros((len(to_build), FIELD_RES, FIELD_RES), bool)
+            for i, (_chunk, ctiles, _slot) in enumerate(to_build):
+                for r, c in ctiles:
+                    seeds_np[i, r % FIELD_RES, c % FIELD_RES] = True
+            blks = np.stack([self._chunk_blockers(layer, *ch)
+                             for ch, _t, _s in to_build])
+            costs_np = np.where(
+                (blks > 0) & ~seeds_np, np.uint8(COST_IMPASSABLE),
+                np.stack([self._chunk_cost(layer, *ch, with_blockers=False)
+                          for ch, _t, _s in to_build]))
+            integ = self._integrate_host(costs_np, seeds_np)
+            dirs = ff.flow_dirs(integ, torch.from_numpy(costs_np).to(dev))
+            slots = torch.as_tensor([s for _c, _t, s in to_build],
+                                    dtype=torch.long, device=dev)
+            state.fields.flow[slots] = dirs
+            self.stats["chunks_built"] += len(to_build)
+
+        for chunk, slot in assignments:
+            idx = self._chunk_idx(*chunk)
+            self.slot_mirror[flock_id, idx] = slot
+            # through-chunk tracking: structure or blocker changes in the
+            # formation's chunks replan it
+            self.flock_chunks.setdefault(flock_id, set()).add(idx)
+        if evicted_any:
+            state.flocks.field_slot = torch.from_numpy(
+                self.slot_mirror.astype(np.int32)).to(dev)
+        else:
+            state.flocks.field_slot[flock_id] = torch.from_numpy(
+                self.slot_mirror[flock_id].astype(np.int32)).to(dev)
+        return state
+
     # -- whole-map fields (enemy-seek / chase) ------------------------------------
 
     def build_enemy_seek_fields_batch(self, state: GameState, specs: list
@@ -750,6 +906,20 @@ class NavService:
         """One whole-map enemy-seek field (a batch of one)."""
         return self.build_enemy_seek_fields_batch(
             state, [(faction, layer, slot, flock_id)])
+
+    def build_surround_field(self, state: GameState, flock_id: int,
+                             target_slotidx: int, layer: int,
+                             slot: int) -> GameState:
+        """Whole-map field toward one entity (TARGET_ENTITY, field.h:79):
+        one seed tile at the target's position, read on the device."""
+        h, w = self.cfg.field_h, self.cfg.field_w
+        p = state.ents.pos[target_slotidx]
+        r = torch.clamp((p[1] / NAV_TILE_SIZE).to(torch.int32), 0, h - 1)
+        c = torch.clamp((p[0] / NAV_TILE_SIZE).to(torch.int32), 0, w - 1)
+        rows = torch.arange(h, device=self.device)[:, None]
+        cols = torch.arange(w, device=self.device)[None, :]
+        seeds = ((rows == r) & (cols == c))[None]
+        return self._install_global(state, [layer], [slot], seeds, [flock_id])
 
     def _install_global(self, state: GameState, layers, slots, seeds,
                         flock_ids) -> GameState:

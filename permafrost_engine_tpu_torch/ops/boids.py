@@ -138,21 +138,39 @@ def alignment_force(vel, flock, neigh_idx, neigh_valid, neigh_pos, neigh_vel,
     return truncate(force, MAX_FORCE) * ALIGNMENT_FORCE
 
 
+_SUM_BITS = 32   # fixed-point scale of the formation sums: 2^-32 u
+
+
+def _flock_sums(idx, vals, rows: int) -> torch.Tensor:
+    """Per-row sums of f32 vals[N, 2] over idx, as f32. A CUDA ``index_add_``
+    adds f32 atomically in any order, so its rounding (an ulp of 0.25 at a
+    4,000-unit flock's ~2e6) changes from run to run; here each value is an
+    int64 multiple of 2^-32, so the sums are the same in any order and so is
+    their f32 rounding. The integer sums are exact for 2^-9 <= |v| < 2^11
+    and up to 2^19 entities; a smaller |v| is rounded by 2^-33 at most."""
+    fixed = torch.round(vals.to(torch.float64) * 2.0 ** _SUM_BITS).to(torch.int64)
+    sums = torch.zeros((rows, vals.shape[1]), dtype=torch.int64,
+                       device=vals.device).index_add_(0, idx, fixed)
+    return (sums.to(torch.float64) * 2.0 ** -_SUM_BITS).to(torch.float32)
+
+
 def formation_keep_force(pos, vel, flock, cell, has_cell, flock_formation,
                          max_flocks: int):
     """Formation cohesion + drag toward the unit's cell offset from the
-    moving flock centroid; zero for flocks without a FormationType."""
+    moving flock centroid; zero for flocks without a FormationType. The
+    per-flock sums are exact (``_flock_sums``), where the JAX version adds
+    in f32 in scatter order: the centroids agree to the f32 sum's rounding
+    and, unlike an f32 atomic scatter, are the same on every run."""
     dev = pos.device
     in_formation = flock_formation[torch.clamp(flock, 0, max_flocks - 1).long()] > 0
     m = has_cell & (flock >= 0) & in_formation
     idx = torch.where(m, flock, max_flocks).long()
-    cnt = torch.zeros(max_flocks + 1, dtype=torch.float32, device=dev
-                      ).index_add_(0, idx, torch.ones_like(pos[:, 0]))
+    cnt = torch.zeros(max_flocks + 1, dtype=torch.int32, device=dev
+                      ).index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32)
+                                   ).to(torch.float32)
     m2 = torch.where(m[:, None], 1.0, 0.0)
-    psum = torch.zeros((max_flocks + 1, 2), dtype=torch.float32, device=dev
-                       ).index_add_(0, idx, pos * m2)
-    csum = torch.zeros((max_flocks + 1, 2), dtype=torch.float32, device=dev
-                       ).index_add_(0, idx, cell * m2)
+    psum = _flock_sums(idx, pos * m2, max_flocks + 1)
+    csum = _flock_sums(idx, cell * m2, max_flocks + 1)
     denom = torch.clamp(cnt, min=1.0)[:, None]
     pc, cc = psum / denom, csum / denom
     target = pc[idx] + (cell - cc[idx])

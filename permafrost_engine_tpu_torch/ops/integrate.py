@@ -56,13 +56,15 @@ def facing_from_history(vel_hist: torch.Tensor, facing: torch.Tensor) -> torch.T
 
 
 def tile_passable(pos, layer, cost_base, blockers):
-    """(passable, blocked) at each entity's nav tile for its layer."""
+    """(passable, blocked) at each entity's nav tile for its layer. A layer
+    beyond the configured ones reads the last (JAX clamps gather indices:
+    a config with fewer layers than footprints does this)."""
     h, w = cost_base.shape[-2], cost_base.shape[-1]
     c = torch.clamp((pos[:, 0] / NAV_TILE_SIZE).to(torch.int32), 0, w - 1).long()
     r = torch.clamp((pos[:, 1] / NAV_TILE_SIZE).to(torch.int32), 0, h - 1).long()
     in_bounds = ((pos[:, 0] >= 0) & (pos[:, 0] < w * NAV_TILE_SIZE)
                  & (pos[:, 1] >= 0) & (pos[:, 1] < h * NAV_TILE_SIZE))
-    lay = layer.long()
+    lay = torch.clamp(layer, 0, cost_base.shape[0] - 1).long()
     return ((cost_base[lay, r, c] != COST_IMPASSABLE) & in_bounds,
             blockers[lay, r, c] > 0)
 

@@ -168,6 +168,27 @@ uids = eng.spawn_batch(np.array([[20.0, 20.0], [30.0, 25.0]], np.float32),
 assert eng.move(uids, (400.0, 200.0))
 eng.step(12)
 assert eng.movestate_of(uids[0]) in (MoveState.MOVING, MoveState.TURNING)
+from permafrost_engine_tpu_torch.core.config import DiplomacyState, EntityFlags
+from permafrost_engine_tpu_torch.game.formation import FormationType
+eng.add_faction(0)
+eng.add_faction(1)
+eng.set_diplomacy(0, 1, DiplomacyState.WAR)
+squad = eng.spawn_batch(np.array([[40.0, 150.0], [48.0, 150.0], [56.0, 152.0]],
+                                 np.float32), max_speed=40.0, unit_type=1)
+assert eng.move_in_formation(squad, (300.0, 120.0), FormationType.RANK)
+assert eng.state.ents.has_formation_cell[eng.uid_to_slot[squad[0]]]
+hall = eng.spawn_batch(np.array([[200.0, 60.0]], np.float32), radius=6.0,
+                       flags=int(EntityFlags.COLLISION | EntityFlags.BUILDING),
+                       max_speed=0.0)
+eng.set_structure_blocking(hall[0], True)
+enemy = eng.spawn_batch(np.array([[480.0, 200.0]], np.float32), faction=1,
+                        max_speed=0.0)
+assert eng.seek_enemies(uids)
+assert eng.surround([enemy[0]], squad[0])
+eng.step(31)
+assert eng._nav_version == 1 and (eng.nav.cost_base == 255).any()
+assert eng.movestate_of(uids[0]) == MoveState.SEEK_ENEMIES
+assert eng.movestate_of(enemy[0]) == MoveState.SURROUND_ENTITY
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "permafrost_engine_tpu"))
 assert not bad, bad
@@ -177,8 +198,9 @@ print("ok")
 
 def test_port_imports_no_jax():
     """A fresh interpreter (tests/conftest.py imports jax into this one)
-    builds and steps an Engine without importing jax, jaxlib, flax or
-    anything of the JAX package."""
+    builds and steps an Engine, orders a formation move, places a
+    structure and issues seek-enemies and surround orders without importing
+    jax, jaxlib, flax or anything of the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
     env["OMP_NUM_THREADS"] = "1"

@@ -7,7 +7,8 @@ same inputs on both sides. Tolerances: bucket indices and integer/bool
 fields exactly equal; ``flow_velocity``/``dest_los`` within 1e-6; boids
 forces and the integrator's floats within 1e-5 (the JAX side is compiled
 by XLA, which contracts multiply-adds into FMAs; the port rounds each
-operation). The whole substep runs the JAX Pallas crowd kernel in
+operation); the formation keep force within 1e-3 of JAX's and 5e-5 of a
+float64 evaluation (its test says why). The whole substep runs the JAX Pallas crowd kernel in
 interpret mode, the counterpart of the port's kernel K1.
 """
 
@@ -22,7 +23,11 @@ import torch
 torch.set_num_threads(1)
 
 from permafrost_engine_tpu.core.config import (
+    CELL_ARRIVAL_RADIUS,
     CONTACT_CELL_SIZE,
+    FORMATION_COHESION_FORCE,
+    FORMATION_DRAG,
+    MAX_FORCE,
     EntityFlags,
     MoveState,
 )
@@ -177,6 +182,66 @@ def test_boids_preferred_velocity():
                                        for k, v in kwargs.items()})
     np.testing.assert_allclose(got.numpy(), _n(want), atol=1e-5)
     assert np.abs(_n(want)).sum() > 1.0
+
+
+def _keep_scene(n=4360, max_flocks=8, seed=5):
+    """A RANK-sized corps in three formation flocks (and one without a
+    FormationType) marching across a 1024 u map, cells near each unit."""
+    rng = np.random.default_rng(seed)
+    pos = (100.0 + 800.0 * rng.random((n, 2))).astype(np.float32)
+    cell = (pos + 12.0 * (rng.random((n, 2)) - 0.5)).astype(np.float32)
+    vel = (rng.random((n, 2)) - 0.5).astype(np.float32)
+    flock = rng.integers(-1, 4, n).astype(np.int32)
+    has_cell = rng.random(n) < 0.9
+    formation = np.zeros(max_flocks, np.int32)
+    formation[:3] = 1
+    return (pos, vel, flock, cell, has_cell, formation), max_flocks
+
+
+def _keep_force_f64(pos, vel, flock, cell, has_cell, formation, max_flocks):
+    """The keep force with every sum and operation in float64."""
+    pos, vel, cell = (a.astype(np.float64) for a in (pos, vel, cell))
+    m = has_cell & (flock >= 0) & (formation[np.clip(flock, 0, max_flocks - 1)] > 0)
+    idx = np.where(m, flock, max_flocks)
+    sums = np.zeros((max_flocks + 1, 5))
+    np.add.at(sums, idx, np.concatenate([pos, cell, np.ones((len(pos), 1))], 1)
+              * m[:, None])
+    mean = sums[:, :4] / np.maximum(sums[:, 4:], 1.0)
+    to = mean[idx, 0:2] + (cell - mean[idx, 2:4]) - pos
+    n = np.linalg.norm(to, axis=1, keepdims=True)
+    keep = np.where(n > MAX_FORCE, to * MAX_FORCE / np.maximum(n, 1e-6), to)
+    near = np.linalg.norm(cell - pos, axis=1) < CELL_ARRIVAL_RADIUS
+    drag = np.where(near[:, None], -vel * FORMATION_DRAG, 0.0)
+    return np.where(m[:, None], keep * FORMATION_COHESION_FORCE + drag, 0.0)
+
+
+def test_formation_keep_force_matches_jax():
+    """The keep force of a 4,360-unit formation. The port sums each flock
+    exactly, so it lies within 5e-5 of a float64 evaluation (the f32
+    rounding of the steps after the sums; 1.7e-5-2.6e-5 on seeds 0-5). The
+    JAX version sums in f32 in scatter order, which moves a ~1,200-unit
+    flock's centroid by up to ~7e-4 u at these positions; the force scales
+    that by FORMATION_COHESION_FORCE (0.35), so port and JAX agree within
+    1e-3 (1.1e-4-3.1e-4 on seeds 0-5)."""
+    args, mf = _keep_scene()
+    want = _n(jboids.formation_keep_force(*[jnp.asarray(a) for a in args],
+                                          max_flocks=mf))
+    got = tboids.formation_keep_force(*[_t(a) for a in args], max_flocks=mf)
+    np.testing.assert_allclose(got.numpy(), _keep_force_f64(*args, mf), atol=5e-5)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3)
+    assert (np.abs(want).sum(1) > 0).mean() > 0.5
+
+
+def test_formation_keep_force_order_free():
+    """The per-flock sums do not depend on the order the entities are added
+    in (on the card an index_add_ adds in any order): permuting the rows
+    permutes the force, bit for bit."""
+    args, mf = _keep_scene()
+    perm = np.random.default_rng(6).permutation(len(args[0]))
+    base = tboids.formation_keep_force(*[_t(a) for a in args], max_flocks=mf)
+    shuffled = tboids.formation_keep_force(
+        *[_t(a[perm]) for a in args[:5]], _t(args[5]), max_flocks=mf)
+    np.testing.assert_array_equal(shuffled.numpy(), base.numpy()[perm])
 
 
 def test_movement_update_fields():
