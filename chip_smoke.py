@@ -82,7 +82,28 @@ package beside it. Phases, each printing its own line:
    and whether the greedy fill ran), the structure commit's ms,
    ``fps_march``, ``fps_contact`` and ``fps_contact_scan`` in ``bench.py``'s
    sense, the skin stage's ms at 10,256 x 32 joints, the seek and surround
-   order ms, the graph cache and peak memory.
+   order ms, the graph cache and peak memory;
+7. the economy at war (the host layer: scheduler, pause, economy, regions,
+   animation system, profiling, sessions): phase 5's two armies (4,800 a
+   side) on the same map and slots, and behind each an economy
+   (``spawn_economy``: 8 resource nodes, 16 harvesters registered with the
+   animation system, 2 storage sites, a founded and supplied building with
+   2 builders, a garrison tower and a transport taking 4 scouts to it) and
+   two regions. Two script tasks wait on 10 deaths each and a third pauses
+   the game for 30 frames, so ``step(60)`` runs frame by frame (eagerly)
+   until no task lives; then micro-batched ``step(60)`` and
+   ``step_scan(120)`` windows (6-frame graph segments), ``profile_tick(60)``
+   twice and ``tick_cost_analysis``, a session saved and loaded on the
+   card, both engines stepped 240 frames, and a ``SubsessionStack`` push
+   and pop. Fails unless the pause held the state, both sides delivered
+   Wood and Stone, both buildings completed, each tower holds its scouts,
+   the transport missions ended, the regions reported enters, deaths were
+   drained, the loaded engine matches the original (state, economy and
+   event digests), a dropped engine's memory (the loaded one, the popped
+   one and their graph pools) is freed, K1's launches equal the movement
+   substeps, K2 launched, and nothing is NaN. Prints ms per frame in each stepping mode, the
+   profile classes, save and load ms, blob bytes, memory with two engines
+   and after the pop, and the host systems' counters.
 
 The script imports only the port and fails if any ``jax``/``jaxlib``/
 ``flax`` module or anything of the JAX package (``permafrost_engine_tpu``)
@@ -1230,6 +1251,373 @@ def phase_combined(dev):
     return res
 
 
+# phase 7: an economy at war, with live tasks, a pause and a session
+ECO_PER_SIDE = 4800          # army units per side, as phase 5's blocks
+ECO_MAX_FRAMES = 2400        # the tasks must all end within this
+PAUSE_AT, PAUSE_FRAMES = 180, 30
+DEATHS_PER_WATCHER = 10
+
+
+def spawn_economy(eng, f: int, back_x: float, inward: float) -> dict:
+    """One side's economy behind its army, at x = back_x + inward * offset
+    (offsets 0-80 world units): 4 replenishable Wood nodes and 4 Stone
+    nodes of 400, 16 harvesters (alternately ordered to a Wood and a Stone
+    node, every one registered with the animation system), 2 storage
+    sites, a founded and supplied building with 2 builders, a garrison
+    tower (capacity 4) and a transport carrying 4 scouts to it."""
+    from permafrost_engine_tpu_torch.core.config import EntityFlags as F
+    from permafrost_engine_tpu_torch.game import economy as E
+
+    eco = eng.economy
+
+    def at(off, z):
+        return np.array([[back_x + inward * off, z]], np.float32)
+
+    def one(off, z, **kw):
+        return eng.spawn_batch(at(off, z), faction=f, **kw)[0]
+
+    nodes = []
+    for i, z in enumerate(np.linspace(150.0, 870.0, 8)):
+        r = one(0.0, z, flags=int(F.RESOURCE), max_speed=0.0)
+        eco.resources[r] = (E.ResourceComp("Wood", 300, 300, True, 3)
+                            if i % 2 == 0 else E.ResourceComp("Stone", 400, 400))
+        nodes.append(r)
+    stores = []
+    for z in (330.0, 690.0):
+        s = one(55.0, z, flags=int(F.STORAGE_SITE), max_speed=0.0, radius=3.0)
+        eco.storages[s] = E.StorageComp(capacity={"Wood": 10000,
+                                                  "Stone": 10000})
+        stores.append(s)
+    harvesters = []
+    for i, z in enumerate(np.linspace(170.0, 850.0, 16)):
+        h = one(25.0, z, max_speed=60.0)
+        eco.harvesters[h] = E.HarvesterComp(
+            gather_speeds={"Wood": 5, "Stone": 5},
+            max_carry={"Wood": 20, "Stone": 20})
+        eng.anim.register(h, model="worker")
+        harvesters.append(h)
+    building = one(40.0, 510.0, flags=int(F.BUILDING | F.COLLISION),
+                   radius=4.0, max_speed=0.0, hp=500.0)
+    eco.buildings[building] = E.BuildingComp(required={"Wood": 50,
+                                                       "Stone": 50})
+    eco.found_building(building)
+    eco.supply_building(building, "Wood", 50)
+    eco.supply_building(building, "Stone", 50)
+    builders = [one(25.0, z, max_speed=60.0) for z in (480.0, 540.0)]
+    for w in builders:
+        eco.builders[w] = E.BuilderComp(build_speed=0.1)
+    tower = one(80.0, 110.0, flags=int(F.GARRISONABLE | F.COLLISION),
+                radius=3.0, max_speed=0.0)
+    eco.garrisons[tower] = E.GarrisonComp(capacity=4)
+    transport = one(10.0, 900.0, max_speed=40.0,
+                    flags=int(F.MOVABLE | F.GARRISONABLE | F.COLLISION
+                              | F.SELECTABLE))
+    eco.garrisons[transport] = E.GarrisonComp(capacity=4)
+    scouts = eng.spawn_batch(np.concatenate([at(12.0 + 3 * i, 905.0)
+                                             for i in range(4)]),
+                             faction=f, max_speed=40.0)
+    return dict(nodes=nodes, stores=stores, harvesters=harvesters,
+                building=building, builders=builders, tower=tower,
+                transport=transport, scouts=scouts)
+
+
+def economy_digest(eng) -> str:
+    """The first 16 hex digits of the SHA-256 of the economy's state:
+    stored amounts per faction, each harvester's state and carried
+    amounts, building states and progress, garrisoned uids."""
+    eco = eng.economy
+    fac = eng.ents_host("faction")["faction"]
+    stored = {}
+    for u, s in sorted(eco.storages.items()):
+        f = int(fac[eng.uid_to_slot[u]])
+        for k, v in sorted(s.stored.items()):
+            stored[(f, k)] = stored.get((f, k), 0) + v
+    data = (sorted(stored.items()),
+            [(u, int(h.state), sorted(h.carried.items()))
+             for u, h in sorted(eco.harvesters.items())],
+            [(u, int(b.state), b.progress)
+             for u, b in sorted(eco.buildings.items())],
+            [(u, list(g.held)) for u, g in sorted(eco.garrisons.items())])
+    return hashlib.sha256(repr(data).encode()).hexdigest()[:16]
+
+
+def pos_digest(eng) -> str:
+    """The first 16 hex digits of the SHA-256 of every position, hp and
+    liveness bit and the device tick: what only the tick (or a teleport)
+    changes."""
+    e = eng.state.ents
+    data = (e.pos.cpu().numpy().tobytes() + e.hp.cpu().numpy().tobytes()
+            + e.alive.cpu().numpy().tobytes() + str(eng.state.tick).encode())
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def phase_economy(dev, n_per_side: int = ECO_PER_SIDE):
+    """Phase 7 (see the module docstring): the economy at war on the battle
+    map, with script tasks, a pause, profiling and a session round trip."""
+    import gc
+
+    from permafrost_engine_tpu_torch import DiplomacyState, EngineConfig, FRAME_HZ
+    from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
+    from permafrost_engine_tpu_torch.core.config import SimState
+    from permafrost_engine_tpu_torch.core.events import EventType
+    from permafrost_engine_tpu_torch.core.sched import AwaitEvent, Sleep
+    from permafrost_engine_tpu_torch.core.session import (
+        SubsessionStack, load_session_bytes, save_session_bytes)
+    from permafrost_engine_tpu_torch.game.economy import BuildingState
+    from permafrost_engine_tpu_torch.game.engine import Engine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg = EngineConfig(max_ents=2 * N_PER_SIDE + 256)
+    eng = Engine(cfg, device=dev)
+    eng.load_map_data(make_battle_map())
+    eng.add_faction(0)
+    eng.add_faction(1)
+    eng.set_diplomacy(0, 1, DiplomacyState.WAR)
+    rng = np.random.default_rng(0)
+    ranged = rng.random(2 * n_per_side) < 0.2
+    kw = dict(max_speed=20.0, vision_range=80.0, hp=200.0)
+    armies = []
+    for f, x0 in ((0, 200.0), (1, 820.0)):
+        r = ranged[f * n_per_side:(f + 1) * n_per_side]
+        armies.append(eng.spawn_batch(
+            block(rng, x0, 212.0, n_per_side, 25), faction=f, is_ranged=r,
+            attack_range=np.where(r, 40.0, 5.0), **kw))
+    sides = [spawn_economy(eng, 0, 40.0, 1.0), spawn_economy(eng, 1, 1000.0, -1.0)]
+    n_ents = int(eng.state.ents.alive.sum())
+    entered = []
+    eng.bus.subscribe(EventType.REGION_ENTERED, entered.append)
+    eng.regions.add_circle("north_gate", (360.0, 264.0), 40.0)
+    eng.regions.add_rect("north_bridge", (468.0, 336.0), 48.0, 96.0)
+    check(eng.move(armies[0], (820.0, 512.0)), "army a path request")
+    check(eng.move(armies[1], (200.0, 512.0)), "army b path request")
+    eco = eng.economy
+    for s in sides:
+        for i, h in enumerate(s["harvesters"]):
+            # two harvesters a node: even nodes are Wood, odd Stone
+            eco.gather(h, s["nodes"][2 * ((i // 2) % 4) + i % 2])
+        for w in s["builders"]:
+            eco.build(w, s["building"])
+        eco.transport(s["transport"], s["scouts"],
+                      tuple(eng.pos_of(s["tower"])))
+
+    # -- script tasks: a death watcher per side, and a pause ---------------
+    woken = []     # (frame, watcher, dead uid) of every watcher wake
+
+    def death_watcher(task, f):
+        seen = 0
+        while seen < DEATHS_PER_WATCHER:
+            ev = yield AwaitEvent(EventType.ENTITY_DEATH)
+            woken.append((eng._frame, f, ev["uid"]))
+            seen += 1
+
+    pause = {}
+
+    def pauser(task):
+        yield Sleep(PAUSE_AT)
+        pause["from"] = (eng._frame, eng.state.tick, pos_digest(eng))
+        eng.sim_state = SimState.PAUSED_FULL
+        yield Sleep(PAUSE_FRAMES)
+        pause["to"] = (eng._frame, eng.state.tick, pos_digest(eng))
+        eng.sim_state = SimState.RUNNING
+
+    for f in (0, 1):
+        eng.sched.create(death_watcher, f, name=f"deaths_{f}")
+    eng.sched.create(pauser, name="pause")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # -- 1. step(60) while tasks live: frame by frame (eager) ----------------
+    # (ms per frame counts the windows that tasks lived through; in the one
+    # where the last task ends, the frames after it fuse into graph replays)
+    tasks_s, replays0 = [], eng._scan_fn.stats["replays"]
+    while eng.sched.tasks:
+        check(eng._frame < ECO_MAX_FRAMES,
+              f"tasks still live at frame {eng._frame}: "
+              f"{[t.name for t in eng.sched.tasks.values()]}")
+        replays = eng._scan_fn.stats["replays"]
+        s = synced_call(eng.step, WAR_WINDOW)
+        if eng.sched.tasks:
+            check(eng._scan_fn.stats["replays"] == replays,
+                  "no graph replay while tasks live")
+            tasks_s.append(s)
+    tasks_frames = eng._frame
+    check("from" in pause and "to" in pause
+          and pause["from"][1:] == pause["to"][1:]
+          and pause["to"][0] - pause["from"][0] == PAUSE_FRAMES,
+          f"the pause holds the digest: {pause}")
+    # the scouts, dropped off at the tower, enter it; these windows, and one
+    # more, capture the economy's 6-frame graphs, so they are not timed
+    for _ in range(20):
+        for s in sides:
+            for u in s["scouts"]:
+                if u not in eco.garrisons[s["tower"]].held:
+                    eco.garrison(u, s["tower"])
+        if all(len(eco.garrisons[s["tower"]].held) == 4 for s in sides):
+            break
+        eng.step(WAR_WINDOW)
+    eng.step(WAR_WINDOW)
+    check(len(woken) == 2 * DEATHS_PER_WATCHER,
+          f"each watcher woke on {DEATHS_PER_WATCHER} deaths: {len(woken)}")
+    first_death = woken[0][0]
+
+    # -- 2. no task left: micro-batched step() and step_scan() windows -------
+    graphed = [synced_call(eng.step, WAR_WINDOW) for _ in range(2)]
+    scanned = [synced_call(eng.step_scan, SCAN_WINDOW) for _ in range(2)]
+    graphs = graph_summary(eng)
+    check(graphs["replays"] > replays0, "graph replays once no task lives")
+
+    # -- 3. profile_tick twice (bench.run_battle), tick_cost_analysis --------
+    profiles = [eng.profile_tick(60) for _ in range(2)]
+    cost = profiles[-1]
+    check(cost["tick_flops_upper"] > 0 and cost["tick_hbm_bytes_upper"] > 0,
+          f"tick_cost_analysis counted the tick: {cost}")
+
+    # -- 4. a session round trip on the card -----------------------------------
+    t0 = time.perf_counter()
+    blob = save_session_bytes(eng)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_session_bytes(blob, device=dev)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    check(loaded._inflight is None and loaded.device == eng.device,
+          "the loaded engine has no window in flight, on the card")
+    check(state_digest(loaded) == state_digest(eng)
+          and economy_digest(loaded) == economy_digest(eng),
+          "the loaded engine starts where the original stands")
+    move_period = FRAME_HZ // cfg.move_hz
+
+    def substeps_between(t0, t1):
+        return t1 // move_period - t0 // move_period
+
+    def run_240(e):
+        t0 = time.perf_counter()
+        e.step(WAR_WINDOW)
+        e.step(WAR_WINDOW)
+        e.step_scan(SCAN_WINDOW)
+        torch.cuda.synchronize()
+        return dict(s=time.perf_counter() - t0, digest=state_digest(e),
+                    economy=economy_digest(e),
+                    events=hashlib.sha256(repr(e.events).encode())
+                    .hexdigest()[:16], n_events=len(e.events), frame=e._frame)
+
+    tick_at_load = eng.state.tick
+    runs = [run_240(eng), run_240(loaded)]
+    check(runs[0]["digest"] == runs[1]["digest"]
+          and runs[0]["economy"] == runs[1]["economy"]
+          and runs[0]["events"] == runs[1]["events"]
+          and loaded.events == eng.events,
+          f"the loaded engine matches the original: {runs}")
+    loaded_graphs = graph_summary(loaded)
+    substeps = substeps_between(tick_at_load, loaded.state.tick)
+    mem_two = torch.cuda.memory_allocated()
+    del loaded
+    gc.collect()
+    mem_one = torch.cuda.memory_allocated()
+
+    # -- 5. a subsession push and pop -------------------------------------------
+    stack = SubsessionStack(device=dev)
+    stack.push(eng)
+    popped = stack.pop()
+    check(state_digest(popped) == state_digest(eng), "the popped session")
+    tick_at_pop = popped.state.tick
+    popped.step(WAR_WINDOW)              # the popped engine captures graphs
+    substeps += substeps_between(tick_at_pop, popped.state.tick)
+    mem_popped = torch.cuda.memory_allocated()
+    del popped
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after_pop = torch.cuda.memory_allocated()
+    check(mem_one < mem_two and mem_after_pop < mem_popped,
+          "a dropped engine's state, buffers and graph pool are freed: "
+          f"{mem_two} -> {mem_one} B, {mem_popped} -> {mem_after_pop} B")
+    counts_pop = read_counts()
+    substeps += substeps_between(0, eng.state.tick)
+
+    # -- the checks -------------------------------------------------------------
+    e = eng.state.ents
+    check(bool(torch.isfinite(e.pos).all() and torch.isfinite(e.vel).all()
+               and not torch.isnan(e.hp).any()), "no NaN in pos/vel/hp")
+    check(counts_pop["k1"] == substeps and substeps > 0,
+          f"K1 launches {counts_pop['k1']} == movement substeps {substeps}")
+    check(counts_pop["k2_chunk"] > 0, f"K2 launched: {counts_pop}")
+    delivered = {f"{f}:{r}": eco.stored_of(f, r) for f in (0, 1)
+                 for r in ("Wood", "Stone")}
+    check(min(delivered.values()) > 0,
+          f"both sides delivered Wood and Stone: {delivered}")
+    check(all(eco.buildings[s["building"]].state == BuildingState.COMPLETED
+              for s in sides), "both buildings completed")
+    held = [sorted(eco.garrisons[s["tower"]].held) for s in sides]
+    check(held == [sorted(s["scouts"]) for s in sides],
+          f"each tower holds its 4 scouts: {held}")
+    check(not any(t.name.startswith("transport") for t in
+                  eng.sched.tasks.values()), "the transport missions ended")
+    check(len(entered) > 0, "the regions reported enters")
+    ev = {k: sum(1 for kk, _ in eng.events if kk == k)
+          for k in ("entity_death", "attack_start", "motion_end")}
+    check(ev["entity_death"] > 0, f"deaths drained: {ev}")
+    wall_s = time.perf_counter() - t_phase
+    counters = {k: eng.counters[k] for k in (
+        "sched_tick_ms", "economy_tick_ms", "region_update_ms",
+        "blk_snapshot_ms", "blk_update_ms")}
+    res = dict(
+        entities=n_ents, setup_s=setup_s, tasks_frames=tasks_frames,
+        tasks_windows_s=tasks_s,
+        ms_per_frame_tasks=1e3 * sum(tasks_s) / (WAR_WINDOW * len(tasks_s)),
+        ms_per_frame_graphed=1e3 * sum(graphed) / (WAR_WINDOW * len(graphed)),
+        ms_per_frame_scan=1e3 * sum(scanned) / (SCAN_WINDOW * len(scanned)),
+        graphed_windows_s=graphed, scan_windows_s=scanned, pause=pause,
+        first_death_frame=first_death, watcher_wakes=woken,
+        profiles=profiles, save_ms=save_ms, load_ms=load_ms,
+        blob_bytes=len(blob), runs=runs, loaded_graphs=loaded_graphs,
+        graphs=graphs, delivered=delivered, held=held,
+        region_enters=len(entered), events=ev, counts=counts_pop,
+        substeps=substeps, counters=counters,
+        mem_two_engines=mem_two, mem_one_engine=mem_one,
+        mem_popped_stepped=mem_popped, mem_after_pop=mem_after_pop,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), wall_s=wall_s)
+    log(f"phase 7 economy at war: {n_ents} entities ({n_per_side} army units "
+        f"a side), setup_s={setup_s:.3f}; tasks lived to frame {tasks_frames}"
+        f" (frame by frame, ms_per_frame={res['ms_per_frame_tasks']:.4f}; first"
+        f" death drained at frame {first_death}); "
+        f"pause {pause['from'][:2]}->{pause['to'][:2]} digest "
+        f"{pause['from'][2]} held; then graphed step({WAR_WINDOW}) "
+        f"ms_per_frame={res['ms_per_frame_graphed']:.4f}, step_scan"
+        f"({SCAN_WINDOW}) ms_per_frame={res['ms_per_frame_scan']:.4f}; "
+        f"graphs: captures={graphs['captures']} replays={graphs['replays']}")
+    for i, p in enumerate(profiles):
+        log(f"phase 7 profile_tick(60) #{i + 1}: " + " ".join(
+            f"{k}={c['ms_p50']:.3f}ms(n={c['n']})"
+            for k, c in p["classes"].items())
+            + f" repeat_spread_pct={p['repeat_spread_pct']} ms_mean="
+            f"{p['ms_mean']:.3f} tick_flops_upper={p['tick_flops_upper']:.4g} "
+            f"tick_hbm_bytes_upper={p['tick_hbm_bytes_upper']:.4g} "
+            f"mfu_upper_pct={p['mfu_upper_pct']}")
+    log(f"phase 7 session: save {save_ms:.1f} ms, {len(blob)} B; load on the "
+        f"card {load_ms:.1f} ms; 240 frames each: original {runs[0]['digest']}"
+        f" economy {runs[0]['economy']} events {runs[0]['events']} "
+        f"({runs[0]['n_events']}), loaded {runs[1]['digest']} economy "
+        f"{runs[1]['economy']} events {runs[1]['events']}: equal; loaded "
+        f"engine's graphs: captures={loaded_graphs['captures']} "
+        f"capture_ms={loaded_graphs['capture_ms']:.1f}")
+    log(f"phase 7 memory: two engines {mem_two} B, one {mem_one} B; a "
+        f"subsession popped and stepped {mem_popped} B, dropped "
+        f"{mem_after_pop} B; peak {res['max_memory_allocated']} B")
+    log(f"phase 7 checks: delivered {delivered}; buildings completed; towers "
+        f"hold {held}; transports done; region enters {len(entered)}; "
+        f"events {ev}; launches={counts_pop} (k1 = substeps {substeps}); "
+        f"host ms " + " ".join(f"{k}={v:.1f}" for k, v in counters.items())
+        + f"; wall_s={wall_s:.1f}")
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1274,15 +1662,16 @@ def main() -> int:
     sl = phase_slice(dev)
     war = phase_war(dev)
     combined = phase_combined(dev)
+    economy = phase_economy(dev)
 
     wall_s = time.perf_counter() - t_start
-    log(f"phases 0-6 wall_s={wall_s:.1f}")
+    log(f"phases 0-7 wall_s={wall_s:.1f}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(device=smi[0], torch=torch.__version__,
                        cuda=torch.version.cuda, nvcc=nvcc_ver, triton=triton_ver,
                        build_s=builds, k2=k2, k1=k1, slice=sl, war=war,
-                       combined=combined, wall_s=wall_s,
+                       combined=combined, economy=economy, wall_s=wall_s,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
     # phase 6's captured K2 calls (formation install, structure relink)
@@ -1301,7 +1690,7 @@ def main() -> int:
                     bound_by=b["bound_by"], library_ms=None)
 
     launches = {k: sl["counts"][k] + war["counts"][k] + combined["counts"][k]
-                for k in sl["counts"]}
+                + economy["counts"][k] for k in sl["counts"]}
     kernels = [
         k2_row("64x64 chunks", "portal_spans", launches["k2_chunk"]),
         k2_row("256x256 map", "map_layer0", launches["k2_map"]),

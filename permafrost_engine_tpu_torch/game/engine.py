@@ -27,7 +27,19 @@ to ``counters``.
 Events reach the host one drain window late, as in the JAX engine: at each
 ``drain_period`` boundary the window that closes is copied to host buffers
 (asynchronously on the card) and the window copied one boundary earlier is
-drained; ``flush_deltas`` (the end of every ``step``) drains both.
+drained; ``flush_deltas`` (the end of every ``step``) drains both. Queued
+bus events are serviced at the end of every host-systems tick (every
+segment) and of every ``step``/``step_scan`` call, as in the JAX engine.
+
+The host layer, as in the JAX engine: the scheduler (``sched``: live tasks
+force frame-by-frame stepping, and ``step_scan`` to ``step``), the pause
+state (``sim_state``: paused, ``step`` advances the frame and runs the host
+systems but no tick, ``step_scan`` returns at once), the economy with its
+garrisons and transports (``economy``), ``regions``, ``selection``,
+``audio`` and the animation system (``anim``), run at ``economy_period``
+from ``_host_systems_tick``; ``settings``, ``perf`` (scopes, counters,
+``profile_tick``, ``tick_cost_analysis``), ``set_flags``, ``teleport``,
+and session save/load (``core/session.py``).
 
 Micro-batching (``micro_batching``, on by default as in JAX): ``step`` runs
 the frames up to the next host-cadence boundary as one segment, and
@@ -36,17 +48,17 @@ replay (``game/graphs.py``), on the CPU its ticks run in turn; both are
 bit-identical to per-frame stepping. ``micro_batching = False`` steps
 frame by frame.
 
-Not ported yet, and absent (no method returns quietly in their place): the
-scheduler's tasks and the pause state, the host subsystems (economy,
-regions, selection, audio, animation), so ``step`` and ``step_scan`` have
-no task, pause or economy conditions yet;
-``core/perf.py`` profiling.
+Not ported yet, and absent (no method returns quietly in their place):
+the ``pf`` script layer and its parts of the engine (``Engine(cfg=None)``,
+``height_at``, ``render_alpha``), rendering, and ``parallel/``.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -60,33 +72,47 @@ from permafrost_engine_tpu_torch.core.config import (
     FIELD_RES,
     MoveState,
     NAV_TILE_SIZE,
+    FRAME_HZ,
     NavDomain,
+    SimState,
     footprint_for_radius,
     nav_layer,
 )
+from permafrost_engine_tpu_torch.core.audio import AudioSystem
 from permafrost_engine_tpu_torch.core.events import EventBus, EventType
+from permafrost_engine_tpu_torch.core.perf import H100_F32_OPS_S, OpCounter, Perf
+from permafrost_engine_tpu_torch.core.sched import Scheduler
+from permafrost_engine_tpu_torch.core.settings import Settings
+from permafrost_engine_tpu_torch.game import graphs
 from permafrost_engine_tpu_torch.game.arrival import assign_ring_slots
+from permafrost_engine_tpu_torch.game.economy import Economy
 from permafrost_engine_tpu_torch.game.formation import (
     FormationType,
     assign_cells,
     block_depth,
     layout_cells,
 )
+from permafrost_engine_tpu_torch.game.region import RegionSystem
+from permafrost_engine_tpu_torch.game.selection import SelectionSystem
 from permafrost_engine_tpu_torch.game.step import make_tick_scan
 from permafrost_engine_tpu_torch.nav.service import NavService
 from permafrost_engine_tpu_torch.ops.skin import make_procedural_bank
+from permafrost_engine_tpu_torch.render.anim_system import AnimSystem
 from permafrost_engine_tpu_torch.state.schema import (
     GameState,
     empty_deltas,
     init_state,
     reset_deltas,
+    state_mem_accounting,
 )
 
 
-# the cadence's host-time counters (ms), as the JAX engine's perf counters
+# host-time counters (ms) in perf.counters: the nav cadence's, as the JAX
+# engine's, then the port's timers of the scheduler, economy and region ticks
 _COUNTERS = ("blk_snapshot_ms", "blk_sig_fetch_ms", "seek_refresh_ms",
              "chase_refresh_ms", "field_batch_ms", "blk_occ_fetch_ms",
-             "blk_extend_ms", "blk_update_ms", "blk_route_ms", "blk_replan_ms")
+             "blk_extend_ms", "blk_update_ms", "blk_route_ms", "blk_replan_ms",
+             "sched_tick_ms", "economy_tick_ms", "region_update_ms")
 
 
 def _chunk_cells(pos: torch.Tensor, cr: int, cc: int):
@@ -161,6 +187,7 @@ class Engine:
         self._skin_bank = (make_procedural_bank(cfg.skin_joints,
                                                 device=self.device)
                            if cfg.skin_joints > 0 else None)
+        self.map_data = None
         self._build_steppers()
         self.micro_batching = True
         self._next_uid = 1
@@ -173,9 +200,25 @@ class Engine:
         self._free_flocks = list(range(cfg.max_flocks - 1, -1, -1))
         self.events: list[tuple[str, dict]] = []
         self.bus = EventBus()
+        # pf.debug.trace_python / log_python: record script handler
+        # dispatches into bus.trace_log while either setting is on
+        self.bus.trace_pred = (lambda: self._debug_flag("trace_python")
+                               or self._debug_flag("log_python"))
+        # pf.debug.log_call_graphs / log_mem_stats ring buffers
+        self.call_graph_log: deque = deque(maxlen=16)
+        self.mem_stats_log: deque = deque(maxlen=8)
+        self.sched = Scheduler(self.bus)
+        self.perf = Perf()
+        self.settings = Settings()
+        self.economy = Economy(self)
+        self.regions = RegionSystem(self.bus)
+        self.selection = SelectionSystem(self.bus)
+        self.audio = AudioSystem()
+        self.anim = AnimSystem(self)
+        self.sim_state = SimState.RUNNING
         self._frame = 0
         self.drain_period = 6
-        self.economy_period = 12   # a cadence boundary for _fusible_frames
+        self.economy_period = 12   # frames between economy ticks (5 Hz)
         self._acc = empty_deltas(cfg, device=self.device)
         # the window copied at the last drain boundary, not yet drained,
         # and the two host buffers windows are copied into in turn
@@ -186,7 +229,8 @@ class Engine:
              for k, v in vars(empty_deltas(cfg, device="cpu")).items()}
             for _ in range(2)]
         self._window_flip = 0
-        self.counters = dict.fromkeys(_COUNTERS, 0.0)
+        self.perf.counters.update(dict.fromkeys(_COUNTERS, 0.0))
+        self.counters = self.perf.counters
         # the nav cadence (see _host_systems_tick)
         self.seek_refresh_period = 30
         self._sigs_inflight = None      # (frame, snapshot) of the last cadence
@@ -333,6 +377,7 @@ class Engine:
                 f"map is {map_data.chunks_r}x{map_data.chunks_c} chunks; "
                 f"engine config is {self.cfg.chunks_r}x{self.cfg.chunks_c}")
         cost, heights = compile_nav_costs(map_data)
+        self.map_data = map_data
         self.heights = heights
         self.set_cost_base(cost[:self.cfg.num_layers])
         if np.ptp(heights) > 0.5:
@@ -666,6 +711,7 @@ class Engine:
             self.events.append(("motion_start", payload))
             self.bus.notify(EventType.MOTION_START, payload)
             self.bus.notify(EventType.MOTION_START, payload, uid=int(u))
+            self.sched.post_event(EventType.MOTION_START, payload)
         return ok
 
     # -- whole-map field slots and chase fields ---------------------------------------
@@ -900,62 +946,126 @@ class Engine:
             k = min(k, p - f % p)
         return max(k, 1)
 
+    def _debug_flag(self, name: str) -> bool:
+        """A pf.debug.* bool, False when unregistered (an engine driven
+        without the script layer)."""
+        try:
+            return bool(self.settings.get(f"pf.debug.{name}"))
+        except Exception:
+            return False
+
+    def _sync(self) -> None:
+        """Wait for the device (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def step(self, n_frames: int = 1) -> None:
-        """Advance n 60 Hz frames. Each segment commits pending structure
-        stamps, runs its ticks, rotates the drain window at a
-        `drain_period` boundary and runs the nav cadence; events are
-        drained once more at the end of the call.
+        """Advance n 60 Hz frames; collect host events from the deltas and
+        run the host systems (tasks, economy, regions, the nav cadence) at
+        their rates — the analogue of the reference's frame loop (ref:
+        src/main.c:816). Each segment commits pending structure stamps,
+        runs its ticks, rotates the drain window at a `drain_period`
+        boundary and runs the host-systems tick, which ends by servicing
+        the event queue; events are drained once more at the end of the
+        call, and the queue serviced.
 
         With ``micro_batching`` the frames up to the next host-cadence
         boundary (``_fusible_frames``) form one segment, a CUDA graph
         replay on the card; only full cadence segments fuse, and a
-        remainder that `n_frames` cuts short runs frame by frame. The JAX
-        engine's task and pause conditions come with the scheduler and
-        the pause state."""
+        remainder that `n_frames` cuts short runs frame by frame. Live
+        tasks or a pause force frame-by-frame stepping (the reference's
+        frame-granular semantics, main.c:86-98), re-read every segment so a
+        task that pauses mid-call takes effect at the next frame. While
+        paused the frame and the nav commit advance and the host systems
+        run, but no tick."""
         left = n_frames
         while left > 0:
+            paused = self.sim_state == SimState.PAUSED_FULL
             k = 1
-            if self.micro_batching:
+            if self.micro_batching and not paused and not self.sched.tasks:
                 fusible = self._fusible_frames()
                 if left >= fusible:
                     k = fusible
+            self.perf.begin_tick()
             self._frame += k
             self._commit_nav()
-            if k == 1:
-                self.state, self._acc = self._tick_fn(self.state, self._acc)
-            else:
-                self.state, self._acc = self._micro_step_fn(k)(self.state,
-                                                               self._acc)
-            if self._frame % self.drain_period == 0:
-                self._rotate_window()
-            self._host_systems_tick()
+            if not paused:
+                with self.perf.scope("device_tick"):
+                    if k == 1:
+                        self.state, self._acc = self._tick_fn(self.state,
+                                                              self._acc)
+                    else:
+                        self.state, self._acc = self._micro_step_fn(k)(
+                            self.state, self._acc)
+                if self._debug_flag("trace_gpu"):
+                    # the reference's GPU timestamp queries made explicit
+                    # (perf.h:155-163): time this segment's device
+                    # completion synchronously — a measurement cost
+                    t0 = time.perf_counter()
+                    self._sync()
+                    self.perf.counters["trace_gpu_device_ms"] += (
+                        time.perf_counter() - t0) * 1e3
+                with self.perf.scope("drain_deltas"):
+                    t0 = time.perf_counter()
+                    if self._frame % self.drain_period == 0:
+                        self._rotate_window()
+                if self._debug_flag("trace_gpu_stalls"):
+                    # a drain wait longer than the segment's frame budget
+                    # means the host out-ran the device (ref: GPU stall
+                    # tracing, R_GL_PerfStallFrameReport render.c:640)
+                    dms = (time.perf_counter() - t0) * 1e3
+                    if dms > k * (1000.0 / FRAME_HZ):
+                        self.perf.counters["gpu_stall_events"] += 1
+                        self.perf.counters["gpu_stall_ms"] += dms
+            with self.perf.scope("host_systems"):
+                self._host_systems_tick()
+            if self._debug_flag("log_call_graphs"):
+                frame = (self.perf._frames[-1] if self.perf._frames
+                         else self.perf._current)
+                self.call_graph_log.append(
+                    [(e.name, round(e.ms, 3), e.parent) for e in frame])
             left -= k
         self.flush_deltas()
-        self.bus.service_queue()
+        self.bus.service_queue(self.sim_state)
 
-    def step_scan(self, n_frames: int) -> None:
-        """Advance n frames in batched segments; events are merged per
-        window. With no live host system the window is ONE segment (one
-        CUDA graph replay on the card). While a seek flock lives or a
-        faction is at war, the window splits into segments of the nav
-        cadence's period, each drained one segment late, so the cadence
-        still runs at its exact frames; frames before the first boundary
-        and after the last go through ``step``. The JAX engine's economy,
-        region, animation-system and task periods and its pause check come
-        with the host subsystems, the scheduler and the pause state."""
-        self._commit_nav()
-        self.flush_deltas()   # per-frame deltas must not arrive out of order
+    def _live_periods(self) -> list[int]:
+        """The host periods ``step_scan`` must keep: the economy period
+        while harvesters, builders, resources, regions or animation states
+        live, the nav cadence while a seek flock lives or a faction is at
+        war, and every frame while a task lives."""
+        eco = self.economy
         periods = []
+        if (eco.harvesters or eco.builders or eco.resources
+                or self.regions.regions or self.anim.states):
+            periods.append(self.economy_period)
         if self._seek_flocks or np.any(self._host_diplomacy
                                        == DiplomacyState.WAR):
             periods.append(self.seek_refresh_period)
+        if self.sched.tasks:
+            periods.append(1)
+        return periods
+
+    def step_scan(self, n_frames: int) -> None:
+        """Advance n frames in batched segments; events are merged per
+        window. Returns at once while paused. With no live host system the
+        window is ONE segment (one CUDA graph replay on the card). With
+        live host systems (``_live_periods``) the window splits into
+        segments of the periods' gcd, each drained one segment late, so
+        every host system still runs at its exact frames; frames before
+        the first boundary and after the last go through ``step``, and a
+        gcd of 1 (a live task) steps the whole window."""
+        if self.sim_state == SimState.PAUSED_FULL:
+            return
+        self._commit_nav()
+        self.flush_deltas()   # per-frame deltas must not arrive out of order
+        periods = self._live_periods()
 
         if not periods:
             self.state, self._acc = self._scan_fn(self.state, n_frames,
                                                   self._acc)
             self.flush_deltas()
             self._frame += n_frames
-            self.bus.service_queue()
+            self.bus.service_queue(self.sim_state)
             return
 
         seg = math.gcd(*periods)
@@ -978,7 +1088,7 @@ class Engine:
         self.flush_deltas()
         if n_frames:
             self.step(n_frames)
-        self.bus.service_queue()
+        self.bus.service_queue(self.sim_state)
 
     def _timed(self, name: str, t0: float) -> float:
         """Add the host time since t0 to counter `name`; returns now."""
@@ -986,10 +1096,59 @@ class Engine:
         self.counters[name] += (now - t0) * 1e3
         return now
 
-    def _host_systems_tick(self) -> None:
+    def ents_host(self, *names: str) -> dict[str, np.ndarray]:
+        """Host copies of entity columns (``state.ents`` field names), taken
+        together: on the card the copies are queued and the device synced
+        once. On the CPU they are copies too (not views), so orders issued
+        while a caller holds them do not show through, as on the card."""
+        ents = self.state.ents
+        if self.device.type != "cuda":
+            return {n: getattr(ents, n).numpy().copy() for n in names}
+        out = {n: getattr(ents, n).to("cpu", non_blocking=True)
+               for n in names}
+        torch.cuda.current_stream(self.device).synchronize()
+        return {n: t.numpy() for n, t in out.items()}
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _host_systems_tick(self, force: bool = False) -> None:
+        """The host systems after a segment, in the JAX engine's order: the
+        scheduler's tick while tasks live; at the economy period (or with
+        `force`) the animation clocks, the audio clock and the
+        ``log_mem_stats`` sample; the nav cadence (``_nav_cadence``); the
+        economy tick and the region update at the economy period while the
+        economy or a region is live; then the event queue is serviced."""
+        if self.sched.tasks:
+            t0 = time.perf_counter()
+            self.sched.tick()
+            self._timed("sched_tick_ms", t0)
+        eco = self.economy
+        eco_live = (eco.harvesters or eco.builders or eco.resources
+                    or self.regions.regions)
+        eco_frame = force or self._frame % self.economy_period == 0
+        if eco_frame:
+            if self.anim.states:
+                self.anim.tick(self.economy_period / FRAME_HZ)
+            self.audio.tick(self.economy_period)
+            if self._debug_flag("log_mem_stats"):
+                self.mem_stats_log.append(
+                    (self._frame, state_mem_accounting(self.state)))
+        if self._frame % self.seek_refresh_period == 0:
+            self._nav_cadence()
+        if eco_live and eco_frame:
+            t0 = time.perf_counter()
+            self.economy.tick()
+            t0 = self._timed("economy_tick_ms", t0)
+            if self.regions.regions:
+                h = self.ents_host("uid", "pos", "alive")
+                self.regions.update(h["uid"], h["pos"], h["alive"])
+                self._timed("region_update_ms", t0)
+        self.bus.service_queue(self.sim_state)
+
+    def _nav_cadence(self) -> None:
         """The nav cadence, every ``seek_refresh_period`` frames while a
-        seek flock lives, a faction is at war or a path flock lives (the JAX
-        engine's ``_host_systems_tick`` without its host subsystems).
+        seek flock lives, a faction is at war or a path flock lives.
 
         Each cadence takes a snapshot on the device (chunk signatures, the
         flocks' active flags, the per-(faction, layer) counts at war, and
@@ -1003,8 +1162,6 @@ class Engine:
         replans at most every 4 periods, only when the flip is outside its
         goal chunk and changes whether its route needs a detour."""
         period = self.seek_refresh_period
-        if self._frame % period:
-            return
         cfg = self.cfg
         t0 = time.perf_counter()
         any_war = bool(np.any(self._host_diplomacy == DiplomacyState.WAR))
@@ -1134,6 +1291,7 @@ class Engine:
             self.events.append((kind, {"uid": int(u)}))
             self.bus.notify(etype, {"uid": int(u)})
             self.bus.notify(etype, {"uid": int(u)}, uid=int(u))
+            self.sched.post_event(etype, {"uid": int(u)})
 
         for u in uid_arr[h["arrived"]]:
             emit("motion_end", EventType.MOTION_END, u)
@@ -1150,11 +1308,13 @@ class Engine:
             self.bus.notify(EventType.PROJECTILE_HIT, payload)
             self.bus.notify(EventType.PROJECTILE_HIT, payload,
                             uid=payload["uid"])
+            self.sched.post_event(EventType.PROJECTILE_HIT, payload)
         for u in uid_arr[h["died"]]:
             emit("entity_death", EventType.ENTITY_DEATH, u)
         for u in uid_arr[h["attack_started"]]:
             emit("attack_start", EventType.ATTACK_START, u)
-        for u in uid_arr[h["corpse_expired"]]:
+        expired = uid_arr[h["corpse_expired"]]
+        for u in expired:
             u = int(u)
             if u in self._structures:   # a destroyed building unblocks nav
                 self.set_structure_blocking(u, False)
@@ -1164,8 +1324,127 @@ class Engine:
             self.events.append(("entity_removed", {"uid": u}))
             self.bus.notify(EventType.ENTITY_REMOVED, {"uid": u})
             self.bus.unsubscribe_entity(u)
+        if expired.size:
+            self.selection.prune_dead(set(self.uid_to_slot))
 
     # -- entity helpers -------------------------------------------------------------
+
+    def set_flags(self, uids: list[int], set_mask: int = 0,
+                  clear_mask: int = 0) -> None:
+        """Set and clear ``EntityFlags`` bits of the units (garrisons hide
+        their passengers with them)."""
+        sl = self._slots_of(uids)
+        e = self.state.ents
+        e.flags[sl] = (e.flags[sl] | int(set_mask)) & ~int(clear_mask)
+
+    def teleport(self, uid: int, pos_xz: tuple[float, float]) -> None:
+        """Place a unit at a position, with no motion in between."""
+        slot = self.uid_to_slot[uid]
+        p = self._to_device(np.asarray(pos_xz, np.float32))
+        self.state.ents.pos[slot] = p
+        self.state.ents.prev_pos[slot] = p
+
+    # -- profiling -------------------------------------------------------------------
+
+    def profile_tick(self, n_frames: int = 60) -> dict:
+        """Per-cadence-class tick timing: run n frames SYNCHRONOUSLY (each
+        eager tick waited on) and report per-tick ms statistics PER CADENCE
+        CLASS, as the JAX engine does: frames are labelled by the gates
+        that fire (``move``, ``combat``, ``fog``, joined by ``+``, or
+        ``base``), each class gets its p50 and the p50s of the first and
+        second half, and ``repeat_spread_pct`` is the worst half-to-half
+        disagreement among classes with 6 or more frames. One untimed
+        warm-up tick runs first. Events of the probe frames are drained at
+        the end; ``tick_cost_analysis`` of the mean is merged in. A
+        measurement probe that breaks the graph pipeline, not a driving
+        mode (the reference's N-frame-delayed GPU timestamp queries,
+        perf.h:155-163)."""
+        mp = FRAME_HZ // self.cfg.move_hz
+        cp = FRAME_HZ // self.cfg.combat_hz
+        fp = max(FRAME_HZ // self.cfg.fog_hz, 1)
+
+        self._sync()
+        # untimed warm-up tick: the interactive path usually replays graphs,
+        # so eager per-device constants may not be built yet
+        self.state, self._acc = self._tick_fn(self.state, self._acc)
+        self._frame += 1
+        self._sync()
+        t_base = self.state.tick
+        recs: list[tuple[str, float]] = []
+        for i in range(n_frames):
+            t = t_base + 1 + i              # the gate fires on tick+1
+            label = [n for n, p in (("move", mp), ("combat", cp),
+                                    ("fog", fp)) if t % p == 0]
+            key = "+".join(label) or "base"
+            t0 = time.perf_counter()
+            self.state, self._acc = self._tick_fn(self.state, self._acc)
+            self._sync()
+            recs.append((key, (time.perf_counter() - t0) * 1e3))
+        self._frame += n_frames
+        self.flush_deltas()
+
+        arr = np.asarray([ms for _, ms in recs])
+        classes: dict[str, dict] = {}
+        half = len(recs) // 2
+        for key in sorted({k for k, _ in recs}):
+            all_ms = np.asarray([ms for k, ms in recs if k == key])
+            h1 = np.asarray([ms for k, ms in recs[:half] if k == key])
+            h2 = np.asarray([ms for k, ms in recs[half:] if k == key])
+            classes[key] = {
+                "ms_p50": round(float(np.median(all_ms)), 3),
+                "n": int(all_ms.size),
+                "ms_p50_h1": round(float(np.median(h1)), 3) if h1.size else None,
+                "ms_p50_h2": round(float(np.median(h2)), 3) if h2.size else None,
+            }
+        agree = [abs(c["ms_p50_h1"] - c["ms_p50_h2"])
+                 / max((c["ms_p50_h1"] + c["ms_p50_h2"]) / 2, 1e-9) * 100
+                 for c in classes.values()
+                 if c["n"] >= 6 and c["ms_p50_h1"] and c["ms_p50_h2"]]
+        stats = {"ms_p50": float(np.median(arr)),
+                 "ms_max": float(arr.max()),
+                 "ms_mean": float(arr.mean()),    # amortized per-frame cost
+                 "frames": n_frames,
+                 "classes": classes,
+                 "repeat_spread_pct": round(max(agree), 1) if agree else None}
+        # utilisation from the AMORTIZED per-frame cost: the operation
+        # count covers every gated substep, so only the mixed-cadence mean
+        # is a meaningful denominator
+        stats.update(self.tick_cost_analysis(stats["ms_mean"]))
+        self.perf.counters["device_tick_exact_ms_p50"] = stats["ms_p50"]
+        return stats
+
+    def tick_cost_analysis(self, tick_ms: float | None = None) -> dict:
+        """Operations and bytes of one tick, counted op by op (``core/perf.
+        OpCounter``, the counterpart of XLA's cost analysis of the compiled
+        tick), and, given a measured tick time, the utilisation of the
+        card's f32 rate (``H100_F32_OPS_S``).
+
+        The tick runs once, eagerly, on copies of the state and the
+        accumulator, at a frame where every substep gate fires, so every
+        substep counts (as XLA's count sums every branch). Both counts are
+        upper bounds: every op's operands and outputs count as moved, and
+        nothing is credited to caching. Kernels launched through ctypes
+        (K1 on the card) are not torch ops and are not counted. Nothing of
+        the engine changes: not its state, its frame, its accumulator or
+        the kernels' launch counters."""
+        state, acc = copy.deepcopy((self.state, self._acc))
+        period = self._scan_fn.period
+        state.tick = (state.tick // period + 1) * period - 1
+        if state.anim is not None:
+            state.anim.tick.fill_(state.tick)
+        launches = graphs._counts()
+        counter = OpCounter()
+        try:
+            with counter:
+                self._tick_fn(state, acc)
+        finally:
+            graphs._set_counts(launches)
+        out = {"tick_flops_upper": float(counter.ops),
+               "tick_hbm_bytes_upper": float(counter.bytes)}
+        if tick_ms:
+            out["mfu_upper_pct"] = round(
+                100.0 * counter.ops / (tick_ms / 1e3) / H100_F32_OPS_S, 3)
+        return out
 
     def pos_of(self, uid: int) -> np.ndarray:
         return self.state.ents.pos[self.uid_to_slot[uid]].cpu().numpy()

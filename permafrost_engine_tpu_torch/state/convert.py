@@ -2,10 +2,11 @@
 
 ``state_from_numpy`` takes the JAX package's ``GameState`` as fetched to the
 host (``jax.device_get``: a tree of numpy arrays whose attribute names match
-this package's dataclasses) and builds the port's state on a device;
-``state_to_numpy`` is the reverse, as nested dicts of numpy arrays keyed by
-the same field names. The parity tests use the pair to start both engines
-from one state. ``anim`` (skinning) crosses both ways when present; its
+this package's dataclasses), or ``state_to_numpy``'s dicts, and builds the
+port's state on a device; ``state_to_numpy`` is the reverse, as nested
+dicts of numpy arrays keyed by the same field names. The parity tests use
+the pair to start both engines from one state, and a session blob
+(``core/session.py``) holds the state as those dicts. ``anim`` (skinning) crosses both ways when present; its
 device frame ``anim.tick`` is the state's ``tick``. ``bank_from_numpy``
 builds the port's ``SkinBank`` from a JAX bank's arrays, so both engines
 can skin with the same rig. Only numpy is needed on the JAX side, so this
@@ -43,20 +44,28 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _get(obj, name, default=None):
+    """A field of a state tree given as attributes or as a dict."""
+    if isinstance(obj, dict):
+        return obj.get(name, default)
+    return getattr(obj, name, default)
+
+
 def state_from_numpy(tree, device) -> schema.GameState:
-    """Port state on `device` from a host copy of the JAX ``GameState``."""
+    """Port state on `device` from a host copy of the JAX ``GameState``, or
+    from ``state_to_numpy``'s dicts."""
     parts = {}
     for name, cls in _COMPONENTS.items():
-        src = getattr(tree, name)
+        src = _get(tree, name)
         parts[name] = cls(**{
-            f.name: _to_tensor(getattr(src, f.name), device)
+            f.name: _to_tensor(_get(src, f.name), device)
             for f in dataclasses.fields(cls)})
-    rng = np.asarray(tree.rng).astype(np.int64)
-    tick = int(np.asarray(tree.tick))
-    anim = getattr(tree, "anim", None)
+    rng = np.asarray(_get(tree, "rng")).astype(np.int64)
+    tick = int(np.asarray(_get(tree, "tick")))
+    anim = _get(tree, "anim")
     if anim is not None:
         anim = schema.AnimArena(
-            **{f: _to_tensor(getattr(anim, f), device) for f in _ANIM},
+            **{f: _to_tensor(_get(anim, f), device) for f in _ANIM},
             tick=torch.tensor(tick, dtype=torch.int32, device=device))
     return schema.GameState(
         tick=tick, rng=torch.from_numpy(rng).to(device), anim=anim, **parts)

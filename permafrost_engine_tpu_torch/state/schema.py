@@ -317,3 +317,30 @@ def reset_deltas(d: TickDeltas) -> None:
         getattr(d, name).zero_()
     d.proj_hit.fill_(-1)
     d.proj_hit_shooter.fill_(-1)
+
+
+def _tensor_leaves(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensor_leaves(getattr(obj, f.name))
+
+
+def state_byte_size(state) -> int:
+    """Device bytes of every tensor in a state (or a component of it;
+    None holds none)."""
+    return sum(t.numel() * t.element_size() for t in _tensor_leaves(state))
+
+
+def state_mem_accounting(state: GameState) -> dict[str, int]:
+    """Device bytes per state component — the analogue of the reference's
+    tagged allocation accounting (ref: src/mem.h:53-95 PF_MALLOC_TAGGED,
+    mem_accounting), as the JAX package's: one entry per component (``anim``
+    0 without skinning) and the total. The port's total differs from the
+    JAX one by its host ``tick`` and int64 ``rng``."""
+    out = {name: state_byte_size(getattr(state, name))
+           for name in ("ents", "flocks", "fields", "nav", "fog",
+                        "projectiles", "factions", "anim")}
+    out["total"] = state_byte_size(state)
+    return out

@@ -202,6 +202,42 @@ skinned.step_scan(30)
 assert int(skinned.state.anim.tick) == skinned.state.tick == 30
 assert int(skinned.state.anim.clip[skinned.uid_to_slot[walker[0]]]) == skin.CLIP_RUN
 assert isinstance(skinned._scan_fn, graphs.TickGraphs)
+from permafrost_engine_tpu_torch.core.config import SimState
+from permafrost_engine_tpu_torch.core.sched import Sleep
+from permafrost_engine_tpu_torch.core.session import (load_session_bytes,
+                                                      save_session_bytes)
+from permafrost_engine_tpu_torch.game.economy import (HarvesterComp,
+                                                      ResourceComp, StorageComp)
+eco = Engine(cfg, device="cpu")
+eco.economy_period = 3
+h = eco.spawn_batch(np.array([[100.0, 60.0]], np.float32), max_speed=120.0)[0]
+eco.economy.harvesters[h] = HarvesterComp(gather_speeds={"Wood": 5},
+                                          max_carry={"Wood": 10})
+r = eco.spawn_batch(np.array([[130.0, 60.0]], np.float32),
+                    flags=int(EntityFlags.RESOURCE))[0]
+eco.economy.resources[r] = ResourceComp("Wood", 30, 30)
+s = eco.spawn_batch(np.array([[100.0, 90.0]], np.float32),
+                    flags=int(EntityFlags.STORAGE_SITE))[0]
+eco.economy.storages[s] = StorageComp(capacity={"Wood": 100})
+eco.economy.gather(h, r)
+
+def pauser(task):
+    yield Sleep(2)
+    eco.sim_state = SimState.PAUSED_FULL
+    yield Sleep(3)
+    eco.sim_state = SimState.RUNNING
+
+eco.sched.create(pauser)
+eco.step(60)
+assert eco._frame == 60 and eco.state.tick == 57 and not eco.sched.tasks
+for _ in range(40):
+    eco.step(6)
+    if eco.economy.storages[s].stored.get("Wood", 0) >= 10:
+        break
+assert eco.economy.storages[s].stored.get("Wood", 0) >= 10
+back = load_session_bytes(save_session_bytes(eco), device="cpu")
+assert back.economy.storages[s].stored == eco.economy.storages[s].stored
+assert bool((back.state.ents.pos == eco.state.ents.pos).all())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "permafrost_engine_tpu"))
 assert not bad, bad
@@ -212,10 +248,12 @@ print("ok")
 def test_port_imports_no_jax():
     """A fresh interpreter (tests/conftest.py imports jax into this one)
     builds and steps an Engine, orders a formation move, places a
-    structure, issues seek-enemies and surround orders, and runs a skinned
+    structure, issues seek-enemies and surround orders, runs a skinned
     engine through ``step_scan`` (``ops/skin``, ``ops/pose``,
-    ``game/graphs``) without importing jax, jaxlib, flax or anything of
-    the JAX package."""
+    ``game/graphs``), and runs a harvest with a task that pauses the game,
+    then a session round trip (``core/sched``, ``game/economy``,
+    ``core/session``, ``core/pickling`` and the rest of the host layer),
+    without importing jax, jaxlib, flax or anything of the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
     env["OMP_NUM_THREADS"] = "1"

@@ -117,6 +117,61 @@ def test_fused_handler_parity_with_events_flowing():
                                   _host(b.state.ents.pos))
 
 
+def _record_handlers(eng, events) -> list:
+    """Subscribe a global handler to each event kind; each call records
+    (the engine's frame, event, uid)."""
+    calls = []
+    for ev in events:
+        eng.bus.subscribe(int(ev), lambda a, e=ev: calls.append(
+            (eng._frame, int(e), a["uid"])))
+    return calls
+
+
+@pytest.mark.parametrize("micro", [True, False], ids=["fused", "per_frame"])
+def test_handlers_fire_at_jax_frames_step(micro):
+    """Queued events are dispatched at the end of every host-systems tick
+    (every segment), as in the JAX engine, not only at the end of a
+    ``step`` call. On the scene of ``_build`` over two ``step(60)`` calls,
+    the move order's 8 MOTION_START handlers fire at frame 6 fused (frame 1
+    per frame) in the JAX engine; a port that serviced the queue only at
+    the end of ``step`` fired them at frame 60."""
+    from permafrost_engine_tpu_torch.core.events import EventType
+
+    logs = []
+    for kind in ("jax", "port"):
+        eng, _ = _build(kind, micro)
+        calls = _record_handlers(eng, (EventType.MOTION_START,
+                                       EventType.MOTION_END))
+        eng.step(60)
+        eng.step(60)
+        logs.append(calls)
+    jlog, tlog = logs
+    starts = [f for f, e, _ in jlog if e == int(EventType.MOTION_START)]
+    assert starts == [6 if micro else 1] * 8
+    assert tlog == jlog
+
+
+def test_handlers_fire_at_jax_frames_step_scan():
+    """The same for one ``step_scan(300)`` over the war scene of
+    ``_corpse_scene``: attack starts, deaths, projectile hits and the
+    building's removal reach their handlers at the JAX engine's frames."""
+    from permafrost_engine_tpu_torch.core.events import EventType
+
+    kinds = (EventType.ATTACK_START, EventType.ENTITY_DEATH,
+             EventType.PROJECTILE_HIT, EventType.ENTITY_REMOVED)
+    logs = []
+    for kind in ("jax", "port"):
+        eng, _ = _corpse_scene(kind)
+        calls = _record_handlers(eng, kinds)
+        eng.step_scan(300)
+        logs.append(calls)
+    jlog, tlog = logs
+    assert {e for _, e, _ in jlog} >= {int(EventType.ATTACK_START),
+                                        int(EventType.ENTITY_DEATH),
+                                        int(EventType.ENTITY_REMOVED)}
+    assert tlog == jlog
+
+
 @pytest.mark.parametrize("frame,seek_period", [
     (0, 30), (1, 30), (5, 30), (7, 30), (24, 30), (29, 30), (59, 30),
     (0, 4), (6, 4), (11, 4)])
