@@ -103,7 +103,34 @@ package beside it. Phases, each printing its own line:
    one and their graph pools) is freed, K1's launches equal the movement
    substeps, K2 launched, and nothing is NaN. Prints ms per frame in each stepping mode, the
    profile classes, save and load ms, blob bytes, memory with two engines
-   and after the pop, and the host systems' counters.
+   and after the pop, and the host systems' counters;
+8. the war battle driven through the ``pf`` script surface, as a game
+   script drives it (``phase_pf``): ``pf.init`` (on the card by default)
+   with 10,256 slots, the battle map loaded from PFMAP text
+   (``pf.load_map_string(write_pfmap(make_battle_map()))``, its cost grid
+   held equal to ``compile_nav_costs``), two factions at war through
+   ``pf``, phase 5's 10,000 units spawned as script objects, one
+   constructor call each (a melee ``Footman`` and a ranged ``Archer``
+   class, 20% archers), and each side ordered by one right click
+   (``pf.inject_mouse_click(x, y, 3)``) at the screen point of the other
+   side's centroid through the active RTS camera. A death handler and a
+   ``pf.Task`` that waits for 10 deaths; ``pf.step(60)`` frame by frame
+   (eagerly) until a death is drained and the task has ended, then three
+   graphed ``pf.step(120)`` contact windows with ``pf.disable_fog_of_war``
+   and ``pf.enable_fog_of_war`` between them. After every window the
+   ``hp`` and ``pos`` properties of 64 fixed entities are read and held
+   equal to ``Engine.ents_host``; at contact ``pf.nearest_ent``,
+   ``pf.ents_in_circle`` and ``pf.get_idle_units`` are timed, and a
+   session saved and loaded through ``pf``; the original and the loaded
+   engine each step 240 frames. Fails unless K1's launches equal the
+   movement substeps, K2 launched for chunks and whole maps, deaths,
+   attack starts and projectile hits occurred, the handler saw every
+   drained death and the task ended, every property read equals the host
+   copy, the fog toggles showed in windows of graph replays alone, the
+   loaded session prints the original's digests, nothing is NaN and
+   ``pf.dump_framebuffer`` raises ``NotImplementedError``. Prints spawn ms
+   per entity, ms per frame eager and graphed, ms per property read and
+   per query, save and load ms, blob bytes, the digests and peak memory.
 
 The script imports only the port and fails if any ``jax``/``jaxlib``/
 ``flax`` module or anything of the JAX package (``permafrost_engine_tpu``)
@@ -1618,6 +1645,321 @@ def phase_economy(dev, n_per_side: int = ECO_PER_SIDE):
     return res
 
 
+# phase 8: the battle driven through the pf script surface
+PF_PROBES = 64               # entities whose properties are read each window
+PF_DEATHS = 10               # the script task waits for this many deaths
+PF_QUERY_REPEATS = 5
+
+
+def _pf_classes(pf):
+    """The script's unit classes, as ``demos/rts_demo.py`` defines Knight."""
+
+    class Footman(pf.MovableEntity, pf.CombatableEntity):
+        """Melee infantry, with phase 5's melee reach."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, attack_range=5.0, **kw)
+
+    class Archer(pf.MovableEntity, pf.CombatableEntity):
+        """Ranged infantry."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, attack_range=40.0, is_ranged=True, **kw)
+
+    return Footman, Archer
+
+
+def phase_pf(dev):
+    """Phase 8 (see the module docstring): the war battle at full width,
+    driven as a game script drives it through ``pf``."""
+    import gc
+    import tempfile
+
+    from permafrost_engine_tpu_torch import EngineConfig, FRAME_HZ, FogState
+    from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
+    from permafrost_engine_tpu_torch.assets.pfmap import (compile_nav_costs,
+                                                          write_pfmap)
+    from permafrost_engine_tpu_torch.script import pf
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg = EngineConfig(max_ents=2 * N_PER_SIDE + 256)
+    ctx = pf.init(cfg)                       # on the card: the default
+    eng = ctx.engine
+    check(eng.device.type == dev.type, f"pf.init's engine is on {eng.device}")
+    eng.prewarm_nav()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    battle_map = make_battle_map()
+    check(pf.load_map_string(write_pfmap(battle_map)), "pf.load_map_string")
+    cost, _ = compile_nav_costs(battle_map)
+    check(np.array_equal(eng.state.nav.cost_base.cpu().numpy(),
+                         cost[:cfg.num_layers]),
+          "the engine's cost grid equals compile_nav_costs(make_battle_map())")
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    sides = [pf.add_faction("West", (60, 120, 255)),
+             pf.add_faction("East", (230, 60, 60))]
+    pf.set_diplomacy_state(sides[0], sides[1], pf.DIPLOMACY_STATE_WAR)
+    check(pf.get_diplomacy_state(sides[1], sides[0]) == pf.DIPLOMACY_STATE_WAR,
+          "the factions are at war")
+
+    # -- 5,000 script objects a side, one constructor call each -------------
+    Footman, Archer = _pf_classes(pf)
+    pos_a, pos_b, ranged = spawn_blocks()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    armies = []
+    for f, pos in zip(sides, (pos_a, pos_b)):
+        armies.append([
+            (Archer if r else Footman)(
+                "unit.pfobj", f"{f}-{i}", pos=(float(p[0]), 0.0, float(p[1])),
+                faction_id=f, speed=20.0, vision_range=80.0, hp=200.0)
+            for i, (p, r) in enumerate(zip(pos, ranged))])
+    torch.cuda.synchronize()
+    spawn_s = time.perf_counter() - t0
+    n_spawned = sum(len(a) for a in armies)
+    check(n_spawned == 2 * N_PER_SIDE
+          and len(pf.context().entities) == n_spawned, "every script entity")
+
+    # -- one right click a side, through the active RTS camera ---------------
+    vw, vh = ctx.ui.virtual_resolution
+    cam = pf.get_active_camera()
+    host = eng.ents_host("pos")["pos"]
+    order_s, goals = [], []
+    for army, other in ((armies[0], armies[1]), (armies[1], armies[0])):
+        c = host[[eng.uid_to_slot[e.uid] for e in other]].mean(axis=0)
+        pf.set_unit_selection(army)
+        cam.move_within_bounds_and_face((float(c[0]), float(c[1])))
+        x, y = cam.world_to_screen((float(c[0]), 0.0, float(c[1])), vw, vh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(pf.inject_mouse_click(x, y, 3) == "move", "a right-click move")
+        torch.cuda.synchronize()
+        order_s.append(time.perf_counter() - t0)
+        goals.append(c.tolist())
+    check(all(e.moving for e in (armies[0][0], armies[1][-1])),
+          "both armies move")
+    pf.clear_unit_selection()
+
+    # -- a death handler and a task that waits for deaths -------------------
+    handled = []
+    pf.register_event_handler(
+        pf.EVENT_ENTITY_DEATH,
+        lambda ev: handled.append((pf.context().engine._frame, ev["uid"])))
+
+    class DeathWatch(pf.Task):
+        def __run__(self):
+            seen = 0
+            while seen < PF_DEATHS:
+                yield self.await_event(pf.EVENT_ENTITY_DEATH)
+                seen += 1
+            self.state["ended_at"] = pf.context().engine._frame
+
+    watch = DeathWatch()
+
+    # -- property reads of 64 fixed entities, against ents_host -------------
+    stride = n_spawned // PF_PROBES
+    probes = [e for army in armies for e in army][::stride][:PF_PROBES]
+    reads = dict(n=0, s=0.0, checks=0)
+
+    def probe():
+        live = [e for e in probes if not e.zombie]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [(e.hp, e.pos) for e in live]
+        reads["s"] += time.perf_counter() - t0
+        reads["n"] += 2 * len(live)
+        h = eng.ents_host("hp", "pos", "height")
+        for e, (hp, p) in zip(live, got):
+            s = eng.uid_to_slot[e.uid]
+            check(hp == float(h["hp"][s]) and p == (
+                float(h["pos"][s, 0]), float(h["height"][s]),
+                float(h["pos"][s, 1])),
+                f"entity {e.uid}'s properties equal the host copy")
+        reads["checks"] += 1
+
+    def step(n):
+        s = synced_call(pf.step, n)
+        probe()
+        return s
+
+    # -- 1. pf.step(60) while the task lives: frame by frame (eager) --------
+    graphs = eng._scan_fn.stats
+    eager, replays0 = [], graphs["replays"]
+    while (not any(k == "entity_death" for k, _ in eng.events)
+           or not watch.completed):
+        check(eng._frame < WAR_MAX_FRAMES,
+              f"no {PF_DEATHS} deaths within {WAR_MAX_FRAMES} frames")
+        replays = graphs["replays"]
+        s = step(WAR_WINDOW)
+        if not watch.completed:
+            check(graphs["replays"] == replays, "no graph replay while tasks live")
+            eager.append(s)
+    task_end = watch.state["ended_at"]
+    check(not eng.sched.tasks and task_end <= eng._frame, "the task ended")
+    first_death = min(f for f, _ in handled)
+
+    # -- 2. three graphed contact windows, the fog toggled between them ------
+    graphed, fog = [synced_call(pf.step, SCAN_WINDOW)], []
+    probe()
+    for toggle, shown in ((pf.disable_fog_of_war, False),
+                          (pf.enable_fog_of_war, True)):
+        toggle()
+        check(bool(eng.state.fog.enabled) == shown, f"fog enabled={shown}")
+        captures, replays = graphs["captures"], graphs["replays"]
+        graphed.append(step(SCAN_WINDOW))
+        visible = [float((eng.state.fog.state[f] == FogState.VISIBLE)
+                         .float().mean()) for f in sides]
+        fog.append(dict(enabled=shown, visible_share=visible,
+                        captures=graphs["captures"] - captures,
+                        replays=graphs["replays"] - replays))
+        check(graphs["replays"] > replays
+              and (dev.type != "cuda" or graphs["captures"] == captures),
+              f"the window after the toggle replayed captured graphs: {fog}")
+        check((min(visible) == 1.0) != shown,
+              f"the fog shows the toggle (enabled={shown}): {visible}")
+
+    # -- 3. spatial queries at contact ------------------------------------------
+    host = eng.ents_host("pos", "alive")
+    mid = host["pos"][host["alive"]].mean(axis=0)
+    queries = {}
+
+    def timed_query(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PF_QUERY_REPEATS):
+            out = fn(*args)
+        queries[name] = 1e3 * (time.perf_counter() - t0) / PF_QUERY_REPEATS
+        return out
+
+    near = timed_query("nearest_ent", pf.nearest_ent, (float(mid[0]),
+                                                       float(mid[1])))
+    circle = timed_query("ents_in_circle", pf.ents_in_circle,
+                         near.pos, 50.0)
+    idle = timed_query("get_idle_units", pf.get_idle_units)
+    check(near in circle, "the nearest entity lies in the circle around it")
+
+    # -- 4. a session through pf at contact -------------------------------------
+    blob_dir = tempfile.mkdtemp()
+    ctx.basedir = blob_dir
+    orig = ctx.engine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(pf.save_session("battle.sav"), "pf.save_session")
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    blob_bytes = os.path.getsize(os.path.join(blob_dir, "battle.sav"))
+    t0 = time.perf_counter()
+    check(pf.load_session("battle.sav"), "pf.load_session")
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    os.remove(os.path.join(blob_dir, "battle.sav"))
+    os.rmdir(blob_dir)
+    loaded = ctx.engine
+    check(loaded is not orig and loaded.device.type == dev.type
+          and state_digest(loaded) == state_digest(orig),
+          "the loaded session starts where the original stands, on the card")
+    tick_at_load = orig.state.tick
+    runs = []
+    for e in (orig, loaded):
+        ctx.engine = e
+        t0 = time.perf_counter()
+        for _ in range(2):
+            pf.step(SCAN_WINDOW)
+        torch.cuda.synchronize()
+        runs.append(dict(s=time.perf_counter() - t0, digest=state_digest(e),
+                         events=hashlib.sha256(repr(e.events).encode())
+                         .hexdigest()[:16], frame=e._frame))
+    check(runs[0]["digest"] == runs[1]["digest"]
+          and runs[0]["events"] == runs[1]["events"],
+          f"the loaded session matches the original: {runs}")
+    loaded_graphs = graph_summary(loaded)
+    ctx.engine = orig
+    move_period = FRAME_HZ // cfg.move_hz
+    substeps = (orig.state.tick // move_period
+                + loaded.state.tick // move_period - tick_at_load // move_period)
+    counts = read_counts()
+
+    # -- the checks ---------------------------------------------------------------
+    for e in (orig, loaded):
+        s = e.state.ents
+        check(bool(torch.isfinite(s.pos).all() and torch.isfinite(s.vel).all()
+                   and not torch.isnan(s.hp).any()), "no NaN in pos/vel/hp")
+    check(counts["k1"] == substeps and substeps > 0,
+          f"K1 launches {counts['k1']} == movement substeps {substeps}")
+    check(counts["k2_chunk"] > 0 and counts["k2_map"] > 0,
+          f"K2 launched for chunks and whole-map fields: {counts}")
+    ev = {k: sum(1 for kk, _ in orig.events if kk == k)
+          for k in ("entity_death", "attack_start", "projectile_hit",
+                    "entity_removed")}
+    for k in ("entity_death", "attack_start", "projectile_hit"):
+        check(ev[k] > 0, f"{k} events through pf: {ev}")
+    drained = [p["uid"] for k, p in orig.events if k == "entity_death"]
+    check([u for _, u in handled] == drained,
+          f"the handler saw every drained death ({len(handled)} of "
+          f"{len(drained)})")
+    try:
+        pf.dump_framebuffer(os.path.join(OUT_DIR, "frame.npy"))
+        raised = False
+    except NotImplementedError:
+        raised = True
+    check(raised and not os.path.exists(os.path.join(OUT_DIR, "frame.npy")),
+          "pf.dump_framebuffer raises NotImplementedError and writes nothing")
+    wall_s = time.perf_counter() - t_phase
+    res = dict(
+        entities=n_spawned, init_s=init_s, map_s=map_s, spawn_s=spawn_s,
+        spawn_ms_per_entity=1e3 * spawn_s / n_spawned,
+        order_ms=[1e3 * s for s in order_s], goals=goals,
+        first_death_frame=first_death, task_end_frame=task_end,
+        eager_windows_s=eager,
+        ms_per_frame_eager=1e3 * sum(eager) / (WAR_WINDOW * len(eager)),
+        graphed_windows_s=graphed,
+        # the first window captures the segments; the other two replay
+        ms_per_frame_graphed=1e3 * sum(graphed[1:]) / (SCAN_WINDOW * 2),
+        ms_per_frame_capture_window=1e3 * graphed[0] / SCAN_WINDOW,
+        property_reads=reads["n"], property_checks=reads["checks"],
+        ms_per_property_read=1e3 * reads["s"] / max(reads["n"], 1),
+        query_ms=queries, circle=len(circle), idle=len(idle), fog=fog,
+        save_ms=save_ms, load_ms=load_ms, blob_bytes=blob_bytes, runs=runs,
+        loaded_graphs=loaded_graphs, graphs=graph_summary(orig), events=ev,
+        handled=len(handled), counts=counts, substeps=substeps,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), wall_s=wall_s)
+    log(f"phase 8 pf battle: {n_spawned} script entities (Footman, Archer), "
+        f"init {init_s:.3f} s, map {map_s:.3f} s, spawn "
+        f"{res['spawn_ms_per_entity']:.4f} ms per "
+        f"entity ({spawn_s:.2f} s), right-click orders ms "
+        + ",".join(f"{x:.1f}" for x in res["order_ms"])
+        + f"; first death at frame {first_death}, the task ended at frame "
+        f"{task_end}; pf.step({WAR_WINDOW}) eager ms_per_frame="
+        f"{res['ms_per_frame_eager']:.4f} ({len(eager)} windows), graphed "
+        f"pf.step({SCAN_WINDOW}) ms_per_frame={res['ms_per_frame_graphed']:.4f}"
+        f" (the window that captures "
+        f"{res['ms_per_frame_capture_window']:.4f})")
+    log(f"phase 8 reads: {reads['n']} property reads (hp, pos) in "
+        f"{reads['checks']} probes of {PF_PROBES} entities, "
+        f"ms_per_property_read={res['ms_per_property_read']:.4f}, all equal "
+        f"to ents_host; queries ms " + " ".join(
+            f"{k}={v:.3f}" for k, v in queries.items())
+        + f" (circle {len(circle)}, idle {len(idle)}); fog toggle in graph "
+        f"replays: " + "; ".join(
+            f"enabled={f['enabled']} visible={f['visible_share'][0]:.3f},"
+            f"{f['visible_share'][1]:.3f} replays={f['replays']} "
+            f"captures={f['captures']}" for f in fog))
+    log(f"phase 8 session through pf: save {save_ms:.1f} ms, {blob_bytes} B; "
+        f"load {load_ms:.1f} ms; 240 frames each: original {runs[0]['digest']}"
+        f" events {runs[0]['events']}, loaded {runs[1]['digest']} events "
+        f"{runs[1]['events']}: equal; events {ev}, handler saw {len(handled)}; "
+        f"launches={counts} (k1 = substeps {substeps}); max_memory_allocated="
+        f"{res['max_memory_allocated']}; wall_s={wall_s:.1f}")
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1663,15 +2005,17 @@ def main() -> int:
     war = phase_war(dev)
     combined = phase_combined(dev)
     economy = phase_economy(dev)
+    pf_battle = phase_pf(dev)
 
     wall_s = time.perf_counter() - t_start
-    log(f"phases 0-7 wall_s={wall_s:.1f}")
+    log(f"phases 0-8 wall_s={wall_s:.1f}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(device=smi[0], torch=torch.__version__,
                        cuda=torch.version.cuda, nvcc=nvcc_ver, triton=triton_ver,
                        build_s=builds, k2=k2, k1=k1, slice=sl, war=war,
-                       combined=combined, economy=economy, wall_s=wall_s,
+                       combined=combined, economy=economy,
+                       pf_battle=pf_battle, wall_s=wall_s,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
     # phase 6's captured K2 calls (formation install, structure relink)
@@ -1690,7 +2034,8 @@ def main() -> int:
                     bound_by=b["bound_by"], library_ms=None)
 
     launches = {k: sl["counts"][k] + war["counts"][k] + combined["counts"][k]
-                + economy["counts"][k] for k in sl["counts"]}
+                + economy["counts"][k] + pf_battle["counts"][k]
+                for k in sl["counts"]}
     kernels = [
         k2_row("64x64 chunks", "portal_spans", launches["k2_chunk"]),
         k2_row("256x256 map", "map_layer0", launches["k2_map"]),

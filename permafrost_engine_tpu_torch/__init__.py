@@ -9,10 +9,14 @@ its plain PyTorch version instead.
 
 The port imports neither ``jax`` nor anything of the JAX package. The
 JAX-free modules it needs are its own copies, under the same names:
-``core/config.py``, ``core/events.py``, ``game/arrival.py``,
-``assets/pfmap.py`` (with ``assets/mapgen.py``, the battle map) and
-``utils/native.py``, which builds the repository's ``native/pf_native.cpp``
-into the port's ``_build/``.
+``core/config.py``, ``core/events.py``, ``core/sched.py``,
+``core/settings.py``, ``core/audio.py``, ``game/arrival.py``,
+``game/region.py``, ``game/selection.py``, ``assets/pfmap.py`` (with the
+PFMAP parser and writer, and ``assets/mapgen.py``, the battle map),
+``assets/pfobj.py``, ``assets/cache.py``, ``render/camera.py``,
+``script/constants.py``, ``script/ui.py``, ``script/ui_style.py``,
+``script/task.py`` and ``utils/native.py``, which builds the repository's
+``native/pf_native.cpp`` into the port's ``_build/``.
 
 Ported so far: the move-order -> flow-field -> movement-substep path, the
 war path and the combined-arms orders (``game/engine.Engine``:
@@ -22,8 +26,15 @@ combat, projectiles, corpses, fog of war (with the height-aware
 shadowcaster), per-(faction, layer) chase fields, RANK/COLUMN formations
 (``game/formation.py`` with the auction of ``ops/assignment.py``),
 structures with incremental portal-graph updates, and the 60-frame nav
-cadence. Not yet: skinning, sessions, the ``pf`` script surface, the
-host subsystems and rendering.
+cadence; skinning (``ops/pose.py``, ``ops/skin.py``), micro-batched
+stepping and ``step_scan`` as CUDA graphs (``game/graphs.py``); the host
+layer (the scheduler, pause, the economy, regions, selection, audio, the
+animation system), profiling and sessions (``core/perf.py``,
+``core/pickling.py``, ``core/session.py``); and the ``pf`` script surface
+(``script/pf.py``: ``from permafrost_engine_tpu_torch.script import pf``,
+with ``script/entity.py``'s entity classes, ``pf.Task``, the UI and the
+constants) with ``ops/collision.py``. Not yet: rendering (so
+``pf.dump_framebuffer`` raises ``NotImplementedError``) and ``parallel/``.
 
 The shared names a caller of the port needs are re-exported here, so a
 driver script imports only this package.

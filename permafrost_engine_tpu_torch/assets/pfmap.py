@@ -5,8 +5,12 @@ the port uses: ``MapData``, ``make_flat_map`` and ``compile_nav_costs`` with
 what they need, verbatim (numpy on the host). The parsed map is *compiled*
 to the engine's arrays: per-layer nav cost grids at 2x tile resolution (the
 reference's nav field resolution, nav_data.h:45) with footprint dilation,
-plus a height field for terrain queries. The text parser and writer are not
-copied yet: nothing in the port reads or writes PFMAP text.
+plus a height field for terrain queries.
+
+The PFMAP text format too (ref: docs/pfmap.txt v1.2): ``parse_pfmap`` (the
+header, material and splat lists, then 32x32-tile chunks of 24-character
+tile records, parsed in Python) and ``write_pfmap``, for ``pf.load_map``
+and ``pf.load_map_string``.
 """
 
 from __future__ import annotations
@@ -54,6 +58,143 @@ class MapData:
     @property
     def tiles_w(self) -> int:
         return self.chunks_c * TILES_PER_CHUNK
+
+
+class PFMapError(ValueError):
+    pass
+
+
+def parse_pfmap(text: str) -> MapData:
+    all_lines = text.splitlines()
+    cursor = [0]
+
+    def lines():
+        while cursor[0] < len(all_lines):
+            ln = all_lines[cursor[0]]
+            cursor[0] += 1
+            yield ln
+    lines = lines()
+
+    def next_line():
+        for ln in lines:
+            ln = ln.strip()
+            if ln:
+                return ln
+        raise PFMapError("unexpected end of file")
+
+    def header(key):
+        ln = next_line().split()
+        if ln[0] != key:
+            raise PFMapError(f"expected '{key}', got {ln[0]!r}")
+        return ln[1]
+
+    version = float(header("version"))
+    num_materials = int(header("num_materials"))
+    num_splats = int(header("num_splats")) if version >= 1.1 else 0
+    num_rows = int(header("num_rows"))
+    num_cols = int(header("num_cols"))
+
+    materials = []
+    for _ in range(num_materials):
+        parts = next_line().split()
+        if parts[0] != "material":
+            raise PFMapError(f"bad material line: {parts}")
+        materials.append((parts[1], parts[2]))
+
+    splats = []
+    for _ in range(num_splats):
+        parts = next_line().split()
+        if parts[0] != "splat":
+            raise PFMapError(f"bad splat line: {parts}")
+        splats.append((int(parts[1]), int(parts[2])))
+
+    th, tw = num_rows * TILES_PER_CHUNK, num_cols * TILES_PER_CHUNK
+    tile_type = np.zeros((th, tw), np.uint8)
+    base_height = np.zeros((th, tw), np.int8)
+    ramp_height = np.zeros((th, tw), np.uint8)
+    top_mat = np.zeros((th, tw), np.int16)
+    side_mat = np.zeros((th, tw), np.int16)
+    pathable = np.zeros((th, tw), bool)
+    no_bump = np.zeros((th, tw), bool)
+    blend_normals = np.zeros((th, tw), bool)
+    cover = np.zeros((th, tw), np.uint8)
+    edge_blend = np.zeros((th, tw, 4), np.uint8)
+
+    # chunks in row-major order; tiles row-major within a chunk. Linear
+    # file index -> global (r, c):
+    total = num_rows * num_cols * TILES_PER_CHUNK * TILES_PER_CHUNK
+    idx = np.arange(total)
+    chunk = idx // (TILES_PER_CHUNK * TILES_PER_CHUNK)
+    within = idx % (TILES_PER_CHUNK * TILES_PER_CHUNK)
+    rr = (chunk // num_cols) * TILES_PER_CHUNK + within // TILES_PER_CHUNK
+    cc_ = (chunk % num_cols) * TILES_PER_CHUNK + within % TILES_PER_CHUNK
+
+    toks = "\n".join(all_lines[cursor[0]:]).split()
+    if len(toks) < total:
+        raise PFMapError(f"expected {total} tiles, found {len(toks)}")
+    for i in range(total):
+        t = toks[i]
+        if len(t) != 24:
+            raise PFMapError(f"tile record must be 24 chars, got {t!r}")
+        r, c = rr[i], cc_[i]
+        tile_type[r, c] = int(t[0], 16)
+        sign = -1 if t[1] == "-" else 1
+        base_height[r, c] = sign * int(t[2:4])
+        ramp_height[r, c] = int(t[4:6])
+        top_mat[r, c] = int(t[6:9])
+        side_mat[r, c] = int(t[9:12])
+        pathable[r, c] = t[12] == "1"
+        blend_normals[r, c] = t[14] == "1"
+        no_bump[r, c] = t[15] == "1"
+        cover[r, c] = int(t[16])
+        edge_blend[r, c] = [int(ch) for ch in t[17:21]]
+
+    return MapData(
+        chunks_r=num_rows, chunks_c=num_cols, materials=materials,
+        splats=splats, tile_type=tile_type, base_height=base_height,
+        ramp_height=ramp_height, top_mat=top_mat, side_mat=side_mat,
+        pathable=pathable, no_bump=no_bump, blend_normals=blend_normals,
+        cover=cover, edge_blend=edge_blend)
+
+
+def write_pfmap(m: MapData) -> str:
+    """Serialize MapData back to PFMAP text (editor support)."""
+    out = [f"version 1.2",
+           f"num_materials {len(m.materials)}",
+           f"num_splats {len(m.splats)}",
+           f"num_rows {m.chunks_r}",
+           f"num_cols {m.chunks_c}"]
+    for name, tex in m.materials:
+        out.append(f"material {name} {tex}")
+    for a, b in m.splats:
+        out.append(f"splat {a} {b}")
+    for cr in range(m.chunks_r):
+        for cc in range(m.chunks_c):
+            for tr in range(TILES_PER_CHUNK):
+                row = []
+                for tc in range(TILES_PER_CHUNK):
+                    r = cr * TILES_PER_CHUNK + tr
+                    c = cc * TILES_PER_CHUNK + tc
+                    h = int(m.base_height[r, c])
+                    rec = (
+                        f"{int(m.tile_type[r, c]):X}"
+                        f"{'-' if h < 0 else '+'}{abs(h):02d}"
+                        f"{int(m.ramp_height[r, c]):02d}"
+                        f"{int(m.top_mat[r, c]):03d}"
+                        f"{int(m.side_mat[r, c]):03d}"
+                        f"{1 if m.pathable[r, c] else 0}0"
+                        f"{1 if m.blend_normals[r, c] else 0}"
+                        f"{1 if m.no_bump[r, c] else 0}"
+                        f"{int(m.cover[r, c])}"
+                        + "".join(str(int(x)) for x in m.edge_blend[r, c])
+                        + "000")
+                    row.append(rec)
+                # first tile of each chunk row starts a new line (spec 3.3)
+                out.append(" ".join(row[:10]))
+                for j in range(10, len(row), 10):
+                    out.append(" ".join(row[j:j + 10]))
+    return "\n".join(out) + "\n"
+
 
 
 def _dilate_blocked(blocked: np.ndarray, k: int) -> np.ndarray:

@@ -48,9 +48,15 @@ replay (``game/graphs.py``), on the CPU its ticks run in turn; both are
 bit-identical to per-frame stepping. ``micro_batching = False`` steps
 frame by frame.
 
+The parts of the engine the ``pf`` script layer calls (``script/pf.py``):
+``Engine(cfg=None)`` takes ``EngineConfig()``; ``height_at`` (the terrain
+height under a point), ``render_alpha`` (the render lerp fraction within a
+movement tick) and ``prewarm_nav`` (on the card it builds both CUDA
+libraries, so the first field build of a battle pays no ``nvcc``; on the
+CPU, where no kernel is built, it does nothing), as in the JAX engine.
+
 Not ported yet, and absent (no method returns quietly in their place):
-the ``pf`` script layer and its parts of the engine (``Engine(cfg=None)``,
-``height_at``, ``render_alpha``), rendering, and ``parallel/``.
+rendering and ``parallel/``.
 """
 
 from __future__ import annotations
@@ -169,8 +175,9 @@ class Engine:
     """The port's engine on one device, the card unless the caller asks for
     ``"cpu"``; see the module docstring for what is and is not ported."""
 
-    def __init__(self, cfg: EngineConfig, *, device="cuda", seed: int = 0,
-                 cost_base: np.ndarray | None = None):
+    def __init__(self, cfg: EngineConfig | None = None, *, device="cuda",
+                 seed: int = 0, cost_base: np.ndarray | None = None):
+        cfg = cfg or EngineConfig()
         self.cfg = cfg
         self.device = torch.device(device)
         self.state: GameState = init_state(cfg, seed=seed, device=self.device)
@@ -386,6 +393,12 @@ class Engine:
         else:
             self._tile_height = None
         self._build_steppers()
+
+    def height_at(self, xz) -> float:
+        """Terrain height (world units) of the nav tile under (x, z)."""
+        r = int(np.clip(xz[1] // NAV_TILE_SIZE, 0, self.cfg.field_h - 1))
+        c = int(np.clip(xz[0] // NAV_TILE_SIZE, 0, self.cfg.field_w - 1))
+        return float(self.heights[r, c])
 
     def set_skin_bank(self, bank) -> None:
         """Swap the device-skinning rig (an ``ops/skin.SkinBank``, e.g. from
@@ -1101,10 +1114,14 @@ class Engine:
         together: on the card the copies are queued and the device synced
         once. On the CPU they are copies too (not views), so orders issued
         while a caller holds them do not show through, as on the card."""
-        ents = self.state.ents
+        return self.host_copies(self.state.ents, *names)
+
+    def host_copies(self, table, *names: str) -> dict[str, np.ndarray]:
+        """``ents_host`` for any table of the state (``state.factions``,
+        ...): host copies of its fields `names`, one sync on the card."""
         if self.device.type != "cuda":
-            return {n: getattr(ents, n).numpy().copy() for n in names}
-        out = {n: getattr(ents, n).to("cpu", non_blocking=True)
+            return {n: getattr(table, n).numpy().copy() for n in names}
+        out = {n: getattr(table, n).to("cpu", non_blocking=True)
                for n in names}
         torch.cuda.current_stream(self.device).synchronize()
         return {n: t.numpy() for n, t in out.items()}
@@ -1343,6 +1360,22 @@ class Engine:
         p = self._to_device(np.asarray(pos_xz, np.float32))
         self.state.ents.pos[slot] = p
         self.state.ents.prev_pos[slot] = p
+
+    @property
+    def render_alpha(self) -> float:
+        """Interpolation fraction within the current movement tick, for
+        render-rate position lerp (ref: interpolate_tick, movement.c:4085)."""
+        period = FRAME_HZ // self.cfg.move_hz
+        return ((self._frame % period) + 1) / period
+
+    def prewarm_nav(self) -> None:
+        """Build both CUDA libraries (K1 and K2) before the battle, so no
+        field build or tick inside it waits on ``nvcc`` (the JAX engine
+        compiles its nav kernels here). On the CPU nothing is built."""
+        if self.device.type == "cuda":
+            from permafrost_engine_tpu_torch.ops import cuda_build
+            for name in ("integrate", "hrvo"):
+                cuda_build.load(name)
 
     # -- profiling -------------------------------------------------------------------
 

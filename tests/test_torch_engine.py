@@ -238,6 +238,22 @@ assert eco.economy.storages[s].stored.get("Wood", 0) >= 10
 back = load_session_bytes(save_session_bytes(eco), device="cpu")
 assert back.economy.storages[s].stored == eco.economy.storages[s].stored
 assert bool((back.state.ents.pos == eco.state.ents.pos).all())
+from permafrost_engine_tpu_torch.assets.pfmap import make_flat_map, write_pfmap
+from permafrost_engine_tpu_torch.script import pf
+pf.init(EngineConfig(max_ents=16, chunks_r=1, chunks_c=1, num_layers=1,
+                     max_flocks=4, max_projectiles=8, field_slab_slots=8,
+                     los_slab_slots=8), device="cpu")
+assert pf.load_map_string(write_pfmap(make_flat_map(1, 1)))
+ents = [pf.MovableEntity("u.pfobj", f"u{i}", pos=(40.0 + 4 * i, 0.0, 60.0),
+                         speed=40.0) for i in range(3)]
+pf.set_unit_selection(ents)
+cam = pf.get_active_camera()
+cam.move_within_bounds_and_face((100.0, 100.0))
+vw, vh = pf.context().ui.virtual_resolution
+x, y = cam.world_to_screen((200.0, 0.0, 120.0), vw, vh)
+assert pf.inject_mouse_click(x, y, 3) == "move"
+pf.step(1)
+assert ents[0].moving and pf.get_ticks() == 1
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "permafrost_engine_tpu"))
 assert not bad, bad
@@ -253,7 +269,10 @@ def test_port_imports_no_jax():
     ``game/graphs``), and runs a harvest with a task that pauses the game,
     then a session round trip (``core/sched``, ``game/economy``,
     ``core/session``, ``core/pickling`` and the rest of the host layer),
-    without importing jax, jaxlib, flax or anything of the JAX package."""
+    then drives the ``pf`` script surface (a PFMAP map loaded from text,
+    script entities ordered by a right click through the camera, one
+    ``pf.step``), without importing jax, jaxlib, flax or anything of the
+    JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
     env["OMP_NUM_THREADS"] = "1"
