@@ -127,10 +127,38 @@ package beside it. Phases, each printing its own line:
    attack starts and projectile hits occurred, the handler saw every
    drained death and the task ended, every property read equals the host
    copy, the fog toggles showed in windows of graph replays alone, the
-   loaded session prints the original's digests, nothing is NaN and
-   ``pf.dump_framebuffer`` raises ``NotImplementedError``. Prints spawn ms
-   per entity, ms per frame eager and graphed, ms per property read and
-   per query, save and load ms, blob bytes, the digests and peak memory.
+   loaded session prints the original's digests and nothing is NaN. Then
+   ``pf.dump_framebuffer`` writes the battle from the active camera
+   (turned to the densest 64x64 cell of living units; ``render_log_mask`` 2
+   counts the live triangles of each pass) and, with
+   ``minimap=True``, the
+   minimap, both as ``.npy`` under ``chiprun_out/``; it fails unless the
+   frame is u8 640x384 and not flat, the units draw over 1,000 of its
+   pixels (against the same frame drawn with no instances) and both
+   armies' dots show on the minimap. Prints spawn ms per entity, ms per
+   frame eager and graphed, ms per property read and per query, save and
+   load ms, blob bytes, the digests, the dumps' ms and peak memory;
+9. the render cell (``phase_render``): ``bench.py``'s ``measure_render``
+   scene through the port, nothing cut: the battle map,
+   ``EngineConfig(max_ents=1064, skin_joints=32)``, 500 units a side at
+   war with move orders, ``step(30)``, and a ``SceneRenderer`` at 1280x720
+   with ``maxi=1000``, shadows and water (reflection and refraction), from
+   faction 0's fog point of view. Prints the first frame's seconds,
+   ``render_ms_p50``, ``render_ms_p90`` and ``render_fps`` over 12 frames
+   (the frame counter bumped so the shadow pass reruns),
+   ``sim_plus_render_fps_dec4`` (60 frames: ``step(4)`` and one render,
+   15 times), the per-pass split (soup, shadow, raster, shade, water,
+   overlays; the median of 8 frames with ``pf.debug.render_log_mask`` 1),
+   the live triangles of each pass against ``raster_budget``
+   (``render_log_mask`` 2) and peak memory. Then the same state is copied
+   to a CPU engine (``state/convert``) and one frame rendered there too.
+   Fails unless TF32 matmuls are off, the frames are u8 1280x720 and not
+   flat, the logged path draws the fused path's frame, the units draw over
+   1,000 pixels, K1's launches equal the movement substeps, K2 launched
+   for the move orders, every pass counted live triangles, and at least
+   99.5% of the card frame's pixels lie within 2 levels of the CPU frame's
+   (``tests/test_torch_scene.py``'s tolerance). Both frames go to
+   ``chiprun_out/`` as ``.npy``.
 
 The script imports only the port and fails if any ``jax``/``jaxlib``/
 ``flax`` module or anything of the JAX package (``permafrost_engine_tpu``)
@@ -1904,13 +1932,38 @@ def phase_pf(dev):
     check([u for _, u in handled] == drained,
           f"the handler saw every drained death ({len(handled)} of "
           f"{len(drained)})")
-    try:
-        pf.dump_framebuffer(os.path.join(OUT_DIR, "frame.npy"))
-        raised = False
-    except NotImplementedError:
-        raised = True
-    check(raised and not os.path.exists(os.path.join(OUT_DIR, "frame.npy")),
-          "pf.dump_framebuffer raises NotImplementedError and writes nothing")
+    # -- pf.dump_framebuffer: the battle from the active camera, the minimap --
+    # the camera on the densest 64x64 cell of living units
+    host = orig.ents_host("alive", "pos")
+    living = host["pos"][host["alive"]]
+    _, cell, per_cell = np.unique((living // 64).astype(int), axis=0,
+                                  return_inverse=True, return_counts=True)
+    dense = living[cell.ravel() == per_cell.argmax()].mean(axis=0)
+    pf.get_active_camera().move_within_bounds_and_face(
+        (float(dense[0]), float(dense[1])))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    dumps = {}
+    for name, mm in (("pf_frame.npy", False), ("pf_minimap.npy", True)):
+        path = os.path.join(OUT_DIR, name)
+        pf.settings_set("pf.debug.render_log_mask", 0 if mm else 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(pf.dump_framebuffer(path, minimap=mm), f"pf.dump_framebuffer {name}")
+        dumps[name] = (np.load(path), 1e3 * (time.perf_counter() - t0))
+    pf.settings_set("pf.debug.render_log_mask", 0)
+    # the frame's live triangles per pass (render_log_mask 2), against the budget
+    dump_live = dict(orig._scene_renderers[(640, 384)].render_log[-1])
+    frame, minimap = dumps["pf_frame.npy"][0], dumps["pf_minimap.npy"][0]
+    check(frame.shape == (384, 640, 3) and frame.dtype == np.uint8
+          and frame.std() > 0, f"a u8 640x384 frame: {frame.shape}")
+    check(minimap.shape == (256, 256, 3) and minimap.dtype == np.uint8,
+          f"a u8 256x256 minimap: {minimap.shape}")
+    frame_px = unit_pixels(orig._scene_renderers[(640, 384)],
+                           pf.get_active_camera(), frame)
+    check(frame_px > 1000, f"units show in the frame: {frame_px} pixels")
+    dots = [int((minimap == np.array(c, np.uint8)).all(-1).sum())
+            for c in ((60, 120, 255), (255, 60, 60))]
+    check(min(dots) > 100, f"both armies' dots on the minimap: {dots}")
     wall_s = time.perf_counter() - t_phase
     res = dict(
         entities=n_spawned, init_s=init_s, map_s=map_s, spawn_s=spawn_s,
@@ -1929,6 +1982,9 @@ def phase_pf(dev):
         save_ms=save_ms, load_ms=load_ms, blob_bytes=blob_bytes, runs=runs,
         loaded_graphs=loaded_graphs, graphs=graph_summary(orig), events=ev,
         handled=len(handled), counts=counts, substeps=substeps,
+        dump_ms={k: v[1] for k, v in dumps.items()}, unit_pixels=frame_px,
+        dump_live=dump_live,
+        minimap_dots=dots,
         max_memory_allocated=torch.cuda.max_memory_allocated(), wall_s=wall_s)
     log(f"phase 8 pf battle: {n_spawned} script entities (Footman, Archer), "
         f"init {init_s:.3f} s, map {map_s:.3f} s, spawn "
@@ -1955,8 +2011,202 @@ def phase_pf(dev):
         f"load {load_ms:.1f} ms; 240 frames each: original {runs[0]['digest']}"
         f" events {runs[0]['events']}, loaded {runs[1]['digest']} events "
         f"{runs[1]['events']}: equal; events {ev}, handler saw {len(handled)}; "
+        f"pf.dump_framebuffer ms frame={dumps['pf_frame.npy'][1]:.1f} minimap="
+        f"{dumps['pf_minimap.npy'][1]:.1f} (units draw {frame_px} pixels, "
+        f"minimap dots {dots}; live triangles {dump_live}); "
         f"launches={counts} (k1 = substeps {substeps}); max_memory_allocated="
         f"{res['max_memory_allocated']}; wall_s={wall_s:.1f}")
+    return res
+
+
+# phase 9: bench.py's measure_render scene through the port's renderer
+RENDER_W, RENDER_H = 1280, 720
+RENDER_PER_SIDE = 500
+RENDER_FRAMES = 12          # timed frames, the shadow pass rerun each
+RENDER_SIM_FRAMES = 60      # step(4) and one render, 15 times
+RENDER_LOG_FRAMES = 8       # pass-by-pass frames (render_log_mask 1)
+RENDER_PASSES = ("soup_ms", "shadow_ms", "raster_ms", "shade_ms", "water_ms",
+                 "overlays_ms")
+FRAME_SHARE, FRAME_LEVELS = 0.995, 2     # tests/test_torch_scene.py's
+
+
+def frame_agreement(a: np.ndarray, b: np.ndarray) -> dict:
+    """The share of pixels within FRAME_LEVELS u8 levels, and the worst."""
+    d = np.abs(a.astype(int) - b.astype(int)).max(-1)
+    return dict(share=float((d <= FRAME_LEVELS).mean()), max=int(d.max()),
+                differ=int((d > 0).sum()))
+
+
+def unit_pixels(renderer, cam, img: np.ndarray, **kw) -> int:
+    """The pixels of `img` (a frame `renderer` drew from `cam`) that the
+    entity instances draw: `img` against the same frame drawn with no
+    instances (and the same cached shadow map)."""
+    maxi, renderer.maxi = renderer.maxi, 0
+    try:
+        bare = renderer.render(cam, **kw)
+    finally:
+        renderer.maxi = maxi
+    return int((img != bare).any(-1).sum())
+
+
+def phase_render(dev):
+    """Phase 9 (see the module docstring): bench.py's measure_render scene
+    (bench.py:386-452), rendered at 1280x720 on the card; one frame of its
+    state rendered again on the CPU."""
+    import gc
+
+    from permafrost_engine_tpu_torch import DiplomacyState, EngineConfig, FRAME_HZ
+    from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
+    from permafrost_engine_tpu_torch.core.settings import SettingType
+    from permafrost_engine_tpu_torch.game.engine import Engine
+    from permafrost_engine_tpu_torch.render.camera import Camera
+    from permafrost_engine_tpu_torch.render.scene import SceneRenderer
+    from permafrost_engine_tpu_torch.state.convert import (state_from_numpy,
+                                                           state_to_numpy)
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are off")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    # -- bench.py's scene: 500 units a side at war with move orders ---------
+    battle_map = make_battle_map()
+    cfg = EngineConfig(max_ents=2 * RENDER_PER_SIDE + 64, skin_joints=32)
+    eng = Engine(cfg)
+    eng.load_map_data(battle_map)
+    eng.add_faction(0)
+    eng.add_faction(1)
+    eng.set_diplomacy(0, 1, DiplomacyState.WAR)
+    rng = np.random.default_rng(0)
+    for f, x0 in ((0, 250.0), (1, 600.0)):
+        pos = np.stack([rng.uniform(x0, x0 + 160, RENDER_PER_SIDE),
+                        rng.uniform(300, 700, RENDER_PER_SIDE)],
+                       1).astype(np.float32)
+        uids = eng.spawn_batch(pos, faction=f, max_speed=20.0,
+                               vision_range=80.0, hp=200.0)
+        check(eng.move(uids, (850.0 - x0, 512.0)), "a move order")
+    cam = Camera()
+    cam.pos = np.array([eng.cfg.world_w / 2, 220.0,
+                        eng.cfg.world_h / 2 + 180.0])
+    cam.pitch, cam.yaw = -50.0, 90.0
+    eng.step(30)
+    eng.settings.create("pf.debug.render_log_mask", SettingType.INT, 0)
+    r = SceneRenderer(eng, w=RENDER_W, h=RENDER_H, maxi=2 * RENDER_PER_SIDE,
+                      shadows=True, reflections=True)
+    check(r.reflections, "the battle map has water: the mirror pass runs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = r.render(cam, faction_pov=0)
+    first_frame_s = time.perf_counter() - t0
+
+    # -- bench's timed frames: render() ends in the u8 fetch ----------------
+    times = []
+    for _ in range(RENDER_FRAMES):
+        eng._frame += 1          # the shadow cache keys on the frame counter
+        t0 = time.perf_counter()
+        r.render(cam, faction_pov=0)
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(times))
+
+    # -- sim + render, a render every 4th frame ------------------------------
+    g0 = dict(eng._scan_fn.stats)
+    t0 = time.perf_counter()
+    for _ in range(RENDER_SIM_FRAMES // 4):
+        eng.step(4)
+        r.render(cam, faction_pov=0)
+    torch.cuda.synchronize()
+    combined_fps = RENDER_SIM_FRAMES / (time.perf_counter() - t0)
+    # the graph captures the window paid (segments new to the cache)
+    sim_graphs = {k: eng._scan_fn.stats[k] - g0.get(k, 0)
+                  for k in eng._scan_fn.stats}
+
+    # -- the pass-by-pass path: per-pass times, then live triangles ----------
+    eng.settings.set("pf.debug.render_log_mask", 1)
+    passes = []
+    for _ in range(RENDER_LOG_FRAMES):
+        eng._frame += 1
+        r.render(cam, faction_pov=0)
+        passes.append(r.render_log[-1])
+    split = {k: float(np.median([p[k] for p in passes])) for k in RENDER_PASSES}
+    eng.settings.set("pf.debug.render_log_mask", 2)
+    eng._frame += 1
+    card = r.render(cam, faction_pov=0)
+    live = dict(r.render_log[-1])
+    eng.settings.set("pf.debug.render_log_mask", 0)
+    check((card == r.render(cam, faction_pov=0)).all(),
+          "the logged and the fused path draw the same frame")
+    torch.cuda.synchronize()
+    max_mem = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    substeps = eng.state.tick // (FRAME_HZ // cfg.move_hz)
+
+    # -- the same state on the CPU -------------------------------------------
+    t0 = time.perf_counter()
+    cpu = Engine(cfg, device="cpu")
+    cpu.state = state_from_numpy(state_to_numpy(eng.state), "cpu")
+    cpu.heights, cpu.map_data = eng.heights, eng.map_data
+    cpu.uid_to_slot = dict(eng.uid_to_slot)
+    cpu._frame = eng._frame
+    cpu_frame = SceneRenderer(cpu, w=RENDER_W, h=RENDER_H,
+                              maxi=2 * RENDER_PER_SIDE, shadows=True,
+                              reflections=True).render(cam, faction_pov=0)
+    cpu_s = time.perf_counter() - t0
+    agree = frame_agreement(card, cpu_frame)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    np.save(os.path.join(OUT_DIR, "render_card.npy"), card)
+    np.save(os.path.join(OUT_DIR, "render_cpu.npy"), cpu_frame)
+
+    # -- the checks ------------------------------------------------------------
+    s = eng.state.ents
+    check(bool(torch.isfinite(s.pos).all() and not torch.isnan(s.hp).any()),
+          "no NaN in pos/hp")
+    check(card.shape == (RENDER_H, RENDER_W, 3) and card.dtype == np.uint8
+          and first.shape == card.shape, "u8 frames at 1280x720")
+    check(len(np.unique(card.reshape(-1, 3), axis=0)) > 1000,
+          "the frame is a rendered scene, not a flat fill")
+    units_px = unit_pixels(r, cam, card, faction_pov=0)
+    check(units_px > 1000, f"units show: {units_px} pixels")
+    check(counts["k1"] == substeps and substeps > 0,
+          f"K1 launches {counts['k1']} == movement substeps {substeps}")
+    check(counts["k2_chunk"] > 0, f"K2 launched for the move orders: {counts}")
+    check(agree["share"] >= FRAME_SHARE,
+          f"the card's frame agrees with the CPU's: {agree}")
+    for k in ("live_main", "live_mirror", "live_shadow"):
+        check(live.get(k, 0) > 0, f"{k} counted: {live}")
+    wall_s = time.perf_counter() - t_phase
+    res = dict(
+        resolution=f"{RENDER_W}x{RENDER_H}", entities=2 * RENDER_PER_SIDE,
+        first_frame_s=first_frame_s, render_ms=times, render_ms_p50=p50,
+        render_ms_p90=float(np.percentile(times, 90)),
+        render_fps=1000.0 / p50, sim_plus_render_fps_dec4=combined_fps,
+        sim_graphs=sim_graphs,
+        pass_ms_p50=split, passes=passes, live=live, cpu_frame_s=cpu_s,
+        agreement=agree, unit_pixels=units_px, counts=counts,
+        substeps=substeps, max_memory_allocated=max_mem, wall_s=wall_s)
+    log(f"phase 9 render: bench.py's measure_render scene, "
+        f"{2 * RENDER_PER_SIDE} units at war, {RENDER_W}x{RENDER_H}, maxi="
+        f"{2 * RENDER_PER_SIDE}, shadows and water: first_frame_s="
+        f"{first_frame_s:.3f} render_ms_p50={p50:.2f} render_ms_p90="
+        f"{res['render_ms_p90']:.2f} render_fps={res['render_fps']:.2f} "
+        f"sim_plus_render_fps_dec4={combined_fps:.2f} (its window: graph "
+        f"captures={sim_graphs.get('captures', 0)} capture_ms="
+        f"{sim_graphs.get('capture_ms', 0.0):.1f} replays="
+        f"{sim_graphs.get('replays', 0)})")
+    log(f"phase 9 passes (ms, median of {RENDER_LOG_FRAMES} pass-by-pass "
+        "frames): " + " ".join(
+        f"{k}={v:.2f}" for k, v in split.items())
+        + f"; live triangles: soup={live['triangles']} main="
+        f"{live['live_main']} mirror={live['live_mirror']} shadow="
+        f"{live['live_shadow']} (compacted to raster_budget="
+        f"{live['raster_budget']} in the main and mirror passes; the shadow "
+        f"pass is not compacted)")
+    log(f"phase 9 card vs CPU frame: {agree['share']:.6f} of pixels within "
+        f"{FRAME_LEVELS} levels ({agree['differ']} differ, worst "
+        f"{agree['max']}); the CPU frame took {cpu_s:.1f} s; units draw "
+        f"{units_px} pixels; launches={counts} (k1 = substeps "
+        f"{substeps}); max_memory_allocated={max_mem}; wall_s={wall_s:.1f}")
     return res
 
 
@@ -2006,16 +2256,17 @@ def main() -> int:
     combined = phase_combined(dev)
     economy = phase_economy(dev)
     pf_battle = phase_pf(dev)
+    render = phase_render(dev)
 
     wall_s = time.perf_counter() - t_start
-    log(f"phases 0-8 wall_s={wall_s:.1f}")
+    log(f"phases 0-9 wall_s={wall_s:.1f}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(device=smi[0], torch=torch.__version__,
                        cuda=torch.version.cuda, nvcc=nvcc_ver, triton=triton_ver,
                        build_s=builds, k2=k2, k1=k1, slice=sl, war=war,
                        combined=combined, economy=economy,
-                       pf_battle=pf_battle, wall_s=wall_s,
+                       pf_battle=pf_battle, render=render, wall_s=wall_s,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
     # phase 6's captured K2 calls (formation install, structure relink)
@@ -2035,7 +2286,7 @@ def main() -> int:
 
     launches = {k: sl["counts"][k] + war["counts"][k] + combined["counts"][k]
                 + economy["counts"][k] + pf_battle["counts"][k]
-                for k in sl["counts"]}
+                + render["counts"][k] for k in sl["counts"]}
     kernels = [
         k2_row("64x64 chunks", "portal_spans", launches["k2_chunk"]),
         k2_row("256x256 map", "map_layer0", launches["k2_map"]),

@@ -15,7 +15,9 @@ JAX-free modules it needs are its own copies, under the same names:
 PFMAP parser and writer, and ``assets/mapgen.py``, the battle map),
 ``assets/pfobj.py``, ``assets/cache.py``, ``render/camera.py``,
 ``script/constants.py``, ``script/ui.py``, ``script/ui_style.py``,
-``script/task.py`` and ``utils/native.py``, which builds the repository's
+``script/task.py``, ``render/textures.py``, ``render/hud.py``,
+``render/ui_compose.py``, ``render/debug_overlays.py``, ``utils/noise.py``,
+``utils/image.py`` and ``utils/native.py``, which builds the repository's
 ``native/pf_native.cpp`` into the port's ``_build/``.
 
 Ported so far: the move-order -> flow-field -> movement-substep path, the
@@ -33,8 +35,9 @@ animation system), profiling and sessions (``core/perf.py``,
 ``core/pickling.py``, ``core/session.py``); and the ``pf`` script surface
 (``script/pf.py``: ``from permafrost_engine_tpu_torch.script import pf``,
 with ``script/entity.py``'s entity classes, ``pf.Task``, the UI and the
-constants) with ``ops/collision.py``. Not yet: rendering (so
-``pf.dump_framebuffer`` raises ``NotImplementedError``) and ``parallel/``.
+constants) with ``ops/collision.py``; and rendering (``render/raster.py``,
+``render/scene.py``'s ``SceneRenderer`` on the engine's device, the HUD, UI
+and debug overlays, ``pf.dump_framebuffer``). Not yet: ``parallel/``.
 
 The shared names a caller of the port needs are re-exported here, so a
 driver script imports only this package.

@@ -18,9 +18,9 @@ The stage reads the frame from ``state.anim.tick``, a device counter the
 tick advances with the host ``GameState.tick``, so a CUDA graph replay of
 the stage sees the frame it runs at, not the frame it was captured at.
 
-Not ported: ``bank_from_pfobj``, which needs ``assets/pfobj.py`` (the
-rendering slice); until then a bank comes from ``make_bank``,
-``make_procedural_bank`` or ``state.convert.bank_from_numpy``.
+A bank comes from ``make_bank``, ``bank_from_pfobj`` (a loaded PFObj's
+clips, ``assets/pfobj.py``), ``make_procedural_bank`` or
+``state.convert.bank_from_numpy``.
 """
 
 from __future__ import annotations
@@ -101,6 +101,32 @@ def make_bank(clips: list[tuple[np.ndarray, np.ndarray, np.ndarray, bool]],
         levels=levels,
         parents=tuple(int(p) for p in np.asarray(parents)),
     )
+
+
+def bank_from_pfobj(model, clip_names: list[str] | None = None, *,
+                    device="cuda") -> SkinBank:
+    """SkinBank on `device` from a loaded PFObj's clips (assets/pfobj.py).
+    Clips are stacked in `clip_names` order (default: idle/run/attack/die
+    aliases falling back to the model's clip list)."""
+    names = list(model.clips.keys())
+    if clip_names is None:
+        def pick(*cands):
+            for c in cands:
+                if c in model.clips:
+                    return c
+            return names[0]
+        clip_names = [pick("idle"), pick("run", "walk", "move"),
+                      pick("attack", "strike"), pick("die", "death")]
+    clips = []
+    for nm in clip_names:
+        c = model.clips[nm]
+        clips.append((np.asarray(c.trans), np.asarray(c.rots),
+                      np.asarray(c.scales),
+                      nm not in ("die", "death", "attack")))
+    return make_bank(clips, np.asarray(model.joint_parents),
+                     np.asarray(model.bind_trans),
+                     np.asarray(model.bind_rots),
+                     np.asarray(model.bind_scales), device=device)
 
 
 def make_procedural_bank(num_joints: int = 32, *, device="cuda") -> SkinBank:

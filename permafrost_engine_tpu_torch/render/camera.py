@@ -8,8 +8,7 @@ kernel (render/draw.py).
 
 The port's own copy of ``permafrost_engine_tpu/render/camera.py``, verbatim
 but for the package name. The port's ``pf`` unprojects clicks and drags
-through it; the culling kernel that reads the frustum waits for the port's
-rendering.
+through it, and ``render/draw.cull_and_emit`` culls against its frustum.
 """
 
 from __future__ import annotations

@@ -23,9 +23,9 @@ queries through ``Engine.host_copies``: one synchronization per call.
 Writes between segments (fog toggles, factions, projectiles) go in place
 into the engine's tensors, so a CUDA graph replays them in its next
 segment. Deliberate differences: ``get_render_info`` and
-``prev_frame_gpu_stats`` name the torch device, the version string ends in
-``-cuda``, and ``dump_framebuffer`` raises ``NotImplementedError`` until
-the port has the rasterizer.
+``prev_frame_gpu_stats`` name the torch device, and the version string
+ends in ``-cuda``. ``dump_framebuffer`` renders through the port's
+rasterizer (``render/scene.py``) on the engine's device.
 """
 
 from __future__ import annotations
@@ -561,13 +561,22 @@ def get_render_settings() -> dict:
 
 
 def dump_framebuffer(path: str, minimap: bool = False) -> bool:
-    """Dump a rendered frame from the active camera (the JAX package's
-    goes through its rasterizer, render/scene.py and render/draw.py).
-    The port has no rasterizer yet: this raises and writes nothing."""
-    raise NotImplementedError(
-        "pf.dump_framebuffer needs the rasterizer (render/scene.py, "
-        "render/draw.py, utils/image.py), which the port does not have yet: "
-        "ROADMAP item 25")
+    """Dump a rendered frame from the active camera through the
+    rasterizer (render/scene.py; pass minimap=True for the top-down
+    minimap raster instead). Writes a real image when the extension is
+    one (png/bmp/jpg, ref: stb_image_write; needs Pillow), else .npy."""
+    if minimap:
+        from permafrost_engine_tpu_torch.render.draw import minimap_raster
+        frame = minimap_raster(_eng())
+    else:
+        from permafrost_engine_tpu_torch.render.scene import render_frame
+        frame = render_frame(_eng(), get_active_camera())
+    if path.lower().endswith((".png", ".bmp", ".jpg", ".jpeg", ".tga")):
+        from permafrost_engine_tpu_torch.utils.image import write_image
+        write_image(path, frame)
+    else:
+        np.save(path, frame)
+    return True
 
 
 def get_version_string() -> str:

@@ -16,8 +16,8 @@ ref: scripts/common/button_style_ctx.py) mutate these objects and restore
 them, same as the reference.
 
 The port's own copy of ``permafrost_engine_tpu/script/ui_style.py``,
-verbatim. The compositor that rasterizes the knobs waits for the port's
-rendering; the draw lists carry the same style snapshots.
+verbatim. ``render/ui_compose.py`` draws the knobs; the draw lists carry the
+same style snapshots.
 """
 
 from __future__ import annotations

@@ -254,6 +254,19 @@ x, y = cam.world_to_screen((200.0, 0.0, 120.0), vw, vh)
 assert pf.inject_mouse_click(x, y, 3) == "move"
 pf.step(1)
 assert ents[0].moving and pf.get_ticks() == 1
+import os, tempfile
+from permafrost_engine_tpu_torch.render import (debug_overlays, draw, hud,
+                                                raster, scene, textures,
+                                                ui_compose)
+from permafrost_engine_tpu_torch.ops import quilt
+from permafrost_engine_tpu_torch.utils import image, noise
+pf.set_minimap_render_all_ents(True)
+pf.settings_set("pf.debug.show_chunk_boundaries", True)
+with tempfile.TemporaryDirectory() as tmp:
+    for name, mm in (("frame.npy", False), ("minimap.npy", True)):
+        assert pf.dump_framebuffer(os.path.join(tmp, name), minimap=mm)
+        img = np.load(os.path.join(tmp, name))
+        assert img.dtype == np.uint8 and img.ndim == 3 and img.std() > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "permafrost_engine_tpu"))
 assert not bad, bad
@@ -271,8 +284,10 @@ def test_port_imports_no_jax():
     ``core/session``, ``core/pickling`` and the rest of the host layer),
     then drives the ``pf`` script surface (a PFMAP map loaded from text,
     script entities ordered by a right click through the camera, one
-    ``pf.step``), without importing jax, jaxlib, flax or anything of the
-    JAX package."""
+    ``pf.step``) and renders through it (``pf.dump_framebuffer``, a frame
+    with a debug overlay and the HUD, and the minimap; every ``render``
+    module, ``ops/quilt``, ``utils/image`` and ``utils/noise`` imported),
+    without importing jax, jaxlib, flax or anything of the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
     env["OMP_NUM_THREADS"] = "1"

@@ -1,12 +1,13 @@
 """PyTorch port vs the JAX package: a whole game scenario through ``pf``.
 
-``demos/rts_demo.py``'s scenario, without its final ``dump_framebuffer``
-(the port has no rasterizer yet): two factions at war, a worker economy
+``demos/rts_demo.py``'s scenario: two factions at war, a worker economy
 (a harvester gathering Wood into a storage site), six knights in a RANK
 formation against six grunts, two scouts garrisoning a tower, a session
-saved and loaded mid-march and again at the end. It runs through the JAX
+saved and loaded mid-march and again at the end, and the demo's last call,
+``pf.dump_framebuffer``, here to a ``.npy`` file. It runs through the JAX
 ``pf`` and through the port's (on the CPU), the same script for both, with
-the demo's own assertions. Held equal: the death events and the frames
+the demo's own assertions. The two dumped frames are held to
+``tests/test_torch_scene.py``'s frame tolerance. Held equal: the death events and the frames
 they came at, the Wood stored each second, who is garrisoned, the
 engine's event log, every hp and the frame. Positions are compared every
 second: within 1e-3 world units (the tolerance of the port's other engine
@@ -41,6 +42,8 @@ import permafrost_engine_tpu.script.pf as jpf
 from permafrost_engine_tpu.core.config import EngineConfig
 from permafrost_engine_tpu_torch.core.config import EngineConfig as TorchConfig
 from permafrost_engine_tpu_torch.script import pf as tpf
+
+from test_torch_scene import assert_frames_close
 
 POS_ATOL = 1e-3
 MELEE_POS_ATOL = 0.05   # 0.0183 measured (see the module docstring)
@@ -110,7 +113,7 @@ def demo_setup(pf, tmp):
 
 
 def rts_demo(pf, tmp) -> dict:
-    """demos/rts_demo.py's main(), without dump_framebuffer; returns what
+    """demos/rts_demo.py's main(), dumping its frame to .npy; returns what
     it observed."""
     w = demo_setup(pf, tmp)
     humans, worker, knights, grunts = (w["humans"], w["worker"],
@@ -158,11 +161,9 @@ def rts_demo(pf, tmp) -> dict:
 
     assert pf.save_session("rts_demo_save.bin")
     assert pf.load_session("rts_demo_save.bin")
-    if pf is tpf:
-        # the demo's last call: the port raises, and writes nothing
-        with pytest.raises(NotImplementedError, match="item 25"):
-            pf.dump_framebuffer(str(tmp / "frame.npy"))
-        assert not (tmp / "frame.npy").exists()
+    # the demo's last call: a frame from the active camera
+    assert pf.dump_framebuffer(str(tmp / "frame.npy"))
+    frame = np.load(tmp / "frame.npy")
     eng = pf.context().engine
     living = [e for e in tracked if not e.zombie]
     return dict(
@@ -173,7 +174,7 @@ def rts_demo(pf, tmp) -> dict:
                    hp=[e.hp for e in living
                        if isinstance(e, pf.CombatableEntity)], idle=sorted(
                        e.uid for e in pf.get_idle_units(humans))),
-        trace=trace)
+        trace=trace, frame=frame)
 
 
 def test_rts_demo_matches_jax(tmp_path):
@@ -201,6 +202,11 @@ def test_rts_demo_matches_jax(tmp_path):
             melee = max(melee, float(np.abs(g - w).max()))
     # the comparison reached the melee, and drifted there as it was measured
     assert got["trace"][-1][0] and 0.0 < melee <= MELEE_POS_ATOL
+    # the dumped frames: the port's renderer over the port's state (the
+    # demo's default camera sees mostly sky; the HUD minimap shows units)
+    assert got["frame"].shape == (384, 640, 3)
+    assert len(np.unique(got["frame"].reshape(-1, 3), axis=0)) > 1
+    assert_frames_close(got["frame"], want["frame"])
 
 
 ONE_FRAME_FRAMES = 600   # the first attack starts at frame 264, the first death at 276
