@@ -159,6 +159,29 @@ package beside it. Phases, each printing its own line:
    99.5% of the card frame's pixels lie within 2 levels of the CPU frame's
    (``tests/test_torch_scene.py``'s tolerance). Both frames go to
    ``chiprun_out/`` as ``.npy``.
+10. the multi-rank mode (``phase_parallel``, ``parallel/``): phase 5's war
+   battle stepped (micro-batched) to the first drained death and saved as a
+   session; only then, with both kernels built, ``parallel.spawn`` starts 4
+   rank processes on this one card (ranks share ``cuda:0``, so the
+   exchange is gloo staged through the host; the transport is printed).
+   Each loads the session on its device, calls ``sharded_engine(...,
+   map_sharded=True)`` (2,564 entity rows a rank, bands of 64 nav rows and
+   32 fog rows) and steps 120 contact frames, then orders ``seek_enemies``
+   for 512 living units of side 0 (a whole-map field through the row-banded
+   halo integrator) and steps 60 more. The single-device engine continues
+   from the same session with the same calls, frame by frame. Fails unless
+   every rank prints the single-device digests of positions and
+   velocities, hp, fog, blockers and whole-map fields after the contact
+   frames and at the end, each rank launched K1 once per movement substep,
+   all-gathered and exchanged halos, loaded no JAX module and ran no nvcc,
+   no rank outlived the timeout, K1 on each rank's row band of the live
+   window equals the whole launch's rows (inputs and outputs, bit for bit)
+   and its plain version, and the band integrator's seek field equals K2's
+   on the same inputs. Prints the digests of every rank and of the
+   single-device engine, K1 launches and rows per rank, collective calls
+   and bytes per tick by kind, ms per sharded frame against the
+   single-device eager frame, the band integrator's ms and sweeps against
+   K2's time for the same field, and each rank's peak memory.
 
 The script imports only the port and fails if any ``jax``/``jaxlib``/
 ``flax`` module or anything of the JAX package (``permafrost_engine_tpu``)
@@ -2210,6 +2233,287 @@ def phase_render(dev):
     return res
 
 
+PAR_RANKS = 4                # phase 10's ranks, all on one card
+PAR_CONTACT_FRAMES = 120     # sharded frames at contact
+PAR_SEEK_FRAMES = 60         # frames after the seek order
+PAR_SEEKERS = 512            # living side-0 units given seek_enemies
+PAR_TIMEOUT_S = 480.0        # a rank still running then fails the phase
+PAR_THREADS = 2              # torch threads per rank (8 host cores)
+
+
+def parallel_digests(eng) -> dict:
+    """16-hex-digit SHA-256 digests of every position and velocity, hp,
+    fog plane, blocker grid and whole-map field."""
+    s = eng.state
+
+    def h(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    return dict(pos_vel=state_digest(eng), hp=h(s.ents.hp),
+                fog=h(s.fog.state), blockers=h(s.nav.blockers),
+                global_flow=h(s.fields.global_flow))
+
+
+def order_seek(eng, side: list) -> int:
+    """``seek_enemies`` for the first `PAR_SEEKERS` living units of `side`
+    (uids); returns how many were ordered."""
+    alive = eng.state.ents.alive.cpu().numpy()
+    uids = [u for u in side if u in eng.uid_to_slot
+            and alive[eng.uid_to_slot[u]]][:PAR_SEEKERS]
+    check(bool(uids) and eng.seek_enemies(uids), "the seek order")
+    return len(uids)
+
+
+def parallel_rank(blob_path: str, side: list) -> dict:
+    """One rank of phase 10 (run by ``parallel.spawn``): load the contact
+    session on the rank's device, shard it with the map row-banded, step
+    the contact frames, order the seek and step on. Returns its digests,
+    launches, rows, collectives, times, the band integrator's calls and,
+    on rank 0, the seek order's first field with its inputs."""
+    from permafrost_engine_tpu_torch import FRAME_HZ
+    from permafrost_engine_tpu_torch.core.session import load_session_bytes
+    from permafrost_engine_tpu_torch.ops import cuda_build
+    from permafrost_engine_tpu_torch.parallel import make_mesh, sharded_engine
+
+    mesh = make_mesh()
+    with open(blob_path, "rb") as f:
+        eng = load_session_bytes(f.read(), device=mesh.device)
+    sharded_engine(eng, mesh, map_sharded=True)
+    hook = eng.nav.sharded_integrate
+    torch.cuda.synchronize(mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    reset_counts()
+    mesh.reset_counters()
+    contact_s = synced_call(eng.step, PAR_CONTACT_FRAMES)
+    contact = parallel_digests(eng)
+    coll_contact = copy.deepcopy(mesh.counters)
+    mesh.reset_counters()
+    fields = []
+
+    def recording(cost, seeds):
+        calls, sweeps = hook.stats["calls"], hook.stats["sweeps"]
+        t = time.perf_counter()
+        out = hook(cost, seeds)
+        ms = (time.perf_counter() - t) * 1e3
+        fields.append(dict(ms=ms, sweeps=hook.stats["sweeps"] - sweeps,
+                           call=calls))
+        if mesh.rank == 0 and len(fields) == 1:
+            fields[0].update(cost=cost.cpu().numpy(), seeds=seeds.cpu().numpy(),
+                             field=out.cpu().numpy())
+        return out
+
+    eng.nav.sharded_integrate = recording
+    torch.cuda.synchronize(mesh.device)
+    t = time.perf_counter()
+    seekers = order_seek(eng, side)
+    torch.cuda.synchronize(mesh.device)
+    order_s = time.perf_counter() - t
+    eng.nav.sharded_integrate = hook
+    seek_s = synced_call(eng.step, PAR_SEEK_FRAMES)
+    counts = read_counts()
+    return dict(
+        rank=mesh.rank, transport=mesh.transport, device=str(mesh.device),
+        contact=contact, end=parallel_digests(eng), counts=counts,
+        substeps=(PAR_CONTACT_FRAMES + PAR_SEEK_FRAMES)
+        // (FRAME_HZ // eng.cfg.move_hz),
+        k1_rows=mesh.rows(eng.cfg.max_ents),
+        field_rows=mesh.rows(eng.cfg.field_h),
+        fog_rows=mesh.rows(eng.cfg.tiles_h),
+        collectives_contact=coll_contact,
+        collectives_seek=copy.deepcopy(mesh.counters),
+        ms_per_frame_contact=1e3 * contact_s / PAR_CONTACT_FRAMES,
+        ms_per_frame_seek=1e3 * seek_s / PAR_SEEK_FRAMES,
+        seekers=seekers, seek_order_ms=1e3 * order_s, seek_fields=fields,
+        band_calls=dict(hook.stats),
+        global_slots=int((eng.state.flocks.global_slot >= 0).sum()),
+        max_memory_allocated=torch.cuda.max_memory_allocated(mesh.device),
+        nvcc_builds=sorted(cuda_build.BUILD_INFO),
+        jax_modules=sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "flax", "permafrost_engine_tpu")))
+
+
+def k1_rows_check(eng, world: int) -> dict:
+    """K1 on each rank's row band of the live window against the whole
+    arena's launch: the band's inputs equal the whole inputs' rows and its
+    output equals the whole output's rows, bit for bit; the band launch
+    against its plain version, both timed."""
+    from permafrost_engine_tpu_torch.game.step import crowd_inputs
+    from permafrost_engine_tpu_torch.ops.crowd_cuda import (
+        hrvo_select_cuda, hrvo_select_plain)
+
+    cfg = eng.cfg
+    exact = cfg.clearpath_exact
+    whole = crowd_inputs(cfg, eng.state)
+    raw = hrvo_select_cuda(*whole["hrvo_args"], exact=exact)
+    per = cfg.max_ents // world
+    out = dict(rows=per, bands=world, max_abs_err=0.0)
+    for r in range(world):
+        lo, hi = r * per, (r + 1) * per
+        band = crowd_inputs(cfg, eng.state, (lo, hi))
+        for a, b in zip(band["hrvo_args"], whole["hrvo_args"]):
+            check(torch.equal(a.view(torch.int8) if a.dtype == torch.bool
+                              else a.view(torch.int32),
+                              (b[lo:hi].view(torch.int8) if b.dtype == torch.bool
+                               else b[lo:hi].view(torch.int32))),
+                  f"K1 band {r}: inputs equal the whole window's rows")
+        got = hrvo_select_cuda(*band["hrvo_args"], exact=exact)
+        check(torch.equal(got.view(torch.int32), raw[lo:hi].view(torch.int32)),
+              f"K1 band {r}: output bit-equal to the whole launch's rows")
+        if r == 0:
+            stats = {}
+            want = hrvo_select_plain(*band["hrvo_args"], exact=exact,
+                                     stats=stats)
+            differ = int(rows_differ(got, want).sum())
+            check(differ == 0, f"K1 band 0: {differ} rows differ from plain")
+            out["max_abs_err"] = float((got - want).abs().max())
+            args = band["hrvo_args"]
+            out["ms"] = cuda_ms(lambda: hrvo_select_cuda(*args, exact=exact),
+                                20)
+            out["plain_ms"] = cuda_ms(
+                lambda: hrvo_select_plain(*args, exact=exact), 3, warmup=1)
+            n, c2 = args[5].shape[0], args[5].shape[1]
+            nbytes = sum(a.numel() * a.element_size() for a in args) + n * 8
+            every, passed, inside = K1_OPS_PER_CONE_TEST[
+                "exact" if exact else "fan"]
+            ops = (n * (5 * c2 + 32 * c2) + stats["pairs"] * every
+                   + stats["passed"] * passed + stats["inside"] * inside)
+            out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
+            out["whole_ms"] = cuda_ms(
+                lambda: hrvo_select_cuda(*whole["hrvo_args"], exact=exact), 20)
+    return out
+
+
+def phase_parallel(dev):
+    """Phase 10: phase 5's war battle at contact, split over `PAR_RANKS`
+    rank processes (on this card; on a card each where there are as many,
+    over NCCL) with the map row-banded
+    (``parallel.sharded_engine(map_sharded=True)``), against the
+    single-device engine continuing from the same session (see the module
+    docstring)."""
+    import tempfile
+
+    from permafrost_engine_tpu_torch.core.session import (
+        load_session_bytes, save_session_bytes)
+    from permafrost_engine_tpu_torch.ops.flowfield_cuda import integrate
+    from permafrost_engine_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    eng, a, _b, _goals = build_battle(dev, war=True)
+    while not any(k == "entity_death" for k, _ in eng.events):
+        check(eng._frame < WAR_MAX_FRAMES,
+              f"no death within {WAR_MAX_FRAMES} frames at war")
+        eng.step(WAR_WINDOW)
+    frame0 = eng._frame
+    blob = save_session_bytes(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="pf_phase10_") as tmp:
+        path = os.path.join(tmp, "contact.session")
+        with open(path, "wb") as f:
+            f.write(blob)
+        t_ranks = time.perf_counter()
+        ranks = spawn(parallel_rank, PAR_RANKS, path, list(a),
+                      timeout_s=PAR_TIMEOUT_S, threads=PAR_THREADS, log=log)
+        ranks_s = time.perf_counter() - t_ranks
+
+    # the single-device engine from the same session, with the same calls
+    ref = load_session_bytes(blob, device=dev)
+    ref.micro_batching = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    contact_s = synced_call(ref.step, PAR_CONTACT_FRAMES)
+    ref_contact = parallel_digests(ref)
+    k1 = k1_rows_check(ref, PAR_RANKS)
+    seekers = order_seek(ref, list(a))
+    synced_call(ref.step, PAR_SEEK_FRAMES)
+    ref_end = parallel_digests(ref)
+    ref_mem = torch.cuda.max_memory_allocated()
+
+    for r in ranks:
+        check(r["jax_modules"] == [], f"rank {r['rank']} loaded no JAX "
+              f"module: {r['jax_modules'][:5]}")
+        check(r["nvcc_builds"] == [], f"rank {r['rank']} ran no nvcc: "
+              f"{r['nvcc_builds']}")
+        check(r["seekers"] == seekers > 0, f"rank {r['rank']} ordered "
+              f"{r['seekers']} seekers, as the single-device engine {seekers}")
+        check(r["contact"] == ref_contact and r["end"] == ref_end,
+              f"rank {r['rank']} digests {r['contact']} / {r['end']} equal "
+              f"the single-device engine's {ref_contact} / {ref_end}")
+        check(r["counts"]["k1"] == r["substeps"] > 0,
+              f"rank {r['rank']}: K1 launches {r['counts']['k1']} == "
+              f"substeps {r['substeps']}")
+        check(r["k1_rows"][1] - r["k1_rows"][0] == k1["rows"],
+              f"rank {r['rank']} K1 rows {r['k1_rows']}")
+        check(r["collectives_contact"]["all_gather"]["calls"] > 0,
+              f"rank {r['rank']} all-gathered at contact")
+        check(r["collectives_seek"]["halo"]["calls"] > 0
+              and r["band_calls"]["calls"] > 0,
+              f"rank {r['rank']} built whole-map fields over the bands")
+    first = ranks[0]["seek_fields"][0]
+    cost = torch.from_numpy(first["cost"]).to(dev)[None].contiguous()
+    seeds = torch.from_numpy(first["seeds"]).to(dev)[None].contiguous()
+    k2_field = integrate(cost, seeds)
+    check(torch.equal(k2_field[0].cpu(), torch.from_numpy(first["field"])),
+          "the band integrator's seek field equals K2's bit for bit")
+    k2_ms = cuda_ms(lambda: integrate(cost, seeds), 20)
+    wall_s = time.perf_counter() - t_phase
+    per_tick = {k: {q: v / PAR_CONTACT_FRAMES for q, v in c.items()}
+                for k, c in ranks[0]["collectives_contact"].items()}
+    for r in ranks:
+        for f in r["seek_fields"]:
+            f.pop("cost", None), f.pop("seeds", None), f.pop("field", None)
+    res = dict(
+        ranks=ranks, transport=ranks[0]["transport"], frame0=frame0,
+        seekers=seekers, ref_contact=ref_contact, ref_end=ref_end,
+        ref_ms_per_frame_contact=1e3 * contact_s / PAR_CONTACT_FRAMES,
+        ref_max_memory_allocated=ref_mem, k1_rows=k1,
+        collectives_per_tick_contact=per_tick, k2_same_field_ms=k2_ms,
+        band_seek_field_ms=first["ms"], band_seek_field_sweeps=first["sweeps"],
+        ranks_s=ranks_s, wall_s=wall_s,
+        counts={k: sum(r["counts"][k] for r in ranks)
+                for k in ranks[0]["counts"]})
+    cards = "a card each" if res["transport"] == "nccl" else "one card"
+    log(f"phase 10 parallel: {PAR_RANKS} ranks on {cards}, transport "
+        f"{res['transport']}; the war battle at contact (session saved at "
+        f"frame {frame0}), map_sharded: entity rows "
+        + " ".join(str(r["k1_rows"]) for r in ranks) + ", field rows "
+        + " ".join(str(r["field_rows"]) for r in ranks) + ", fog rows "
+        + " ".join(str(r["fog_rows"]) for r in ranks)
+        + " (fog: whole planes on every rank, the map has heights)")
+    for r in ranks:
+        log(f"phase 10 rank {r['rank']} ({r['device']}): contact {r['contact']}"
+            f" end {r['end']}; K1 launches {r['counts']['k1']} on "
+            f"{r['k1_rows'][1] - r['k1_rows'][0]} rows (substeps "
+            f"{r['substeps']}), K2 chunk {r['counts']['k2_chunk']} map "
+            f"{r['counts']['k2_map']}; ms_per_frame contact="
+            f"{r['ms_per_frame_contact']:.3f} after seek="
+            f"{r['ms_per_frame_seek']:.3f}; seek order "
+            f"{r['seek_order_ms']:.1f} ms; band integrator "
+            f"{r['band_calls']['calls']} fields, "
+            f"{r['band_calls']['sweeps']} sweeps, "
+            f"{r['band_calls']['ms']:.1f} ms; max_memory_allocated="
+            f"{r['max_memory_allocated']}")
+    log(f"phase 10 single-device (eager): contact {ref_contact} end {ref_end};"
+        f" ms_per_frame contact={res['ref_ms_per_frame_contact']:.3f}; "
+        f"max_memory_allocated={ref_mem}; digests equal on all "
+        f"{PAR_RANKS} ranks")
+    log("phase 10 collectives per tick at contact (rank 0): " + " ".join(
+        f"{k}={v['calls']:.4f} calls {v['bytes']:.1f} B"
+        for k, v in per_tick.items()) + "; after the seek order "
+        + " ".join(f"{k}={v['calls']} calls {v['bytes']} B" for k, v in
+                   ranks[0]["collectives_seek"].items()))
+    log(f"phase 10 K1 on {k1['rows']}-row bands: inputs and output bit-equal "
+        f"to the whole launch's rows in all {k1['bands']} bands, bit-equal to "
+        f"plain; band kernel_ms={k1['ms']:.4f} whole_ms={k1['whole_ms']:.4f} "
+        f"plain_ms={k1['plain_ms']:.4f} bound_ms={k1['bound_ms']:.5f} "
+        f"({k1['bound_by']})")
+    log(f"phase 10 seek field (256x256): band integrator "
+        f"{first['ms']:.1f} ms, {first['sweeps']} sweeps; K2 on the same field "
+        f"{k2_ms:.4f} ms, bit-equal; ranks_s={ranks_s:.1f} wall_s={wall_s:.1f}")
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2257,16 +2561,18 @@ def main() -> int:
     economy = phase_economy(dev)
     pf_battle = phase_pf(dev)
     render = phase_render(dev)
+    parallel = phase_parallel(dev)
 
     wall_s = time.perf_counter() - t_start
-    log(f"phases 0-9 wall_s={wall_s:.1f}")
+    log(f"phases 0-10 wall_s={wall_s:.1f}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(device=smi[0], torch=torch.__version__,
                        cuda=torch.version.cuda, nvcc=nvcc_ver, triton=triton_ver,
                        build_s=builds, k2=k2, k1=k1, slice=sl, war=war,
                        combined=combined, economy=economy,
-                       pf_battle=pf_battle, render=render, wall_s=wall_s,
+                       pf_battle=pf_battle, render=render,
+                       parallel=parallel, wall_s=wall_s,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
     # phase 6's captured K2 calls (formation install, structure relink)
@@ -2284,12 +2590,16 @@ def main() -> int:
                     plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
                     bound_by=b["bound_by"], library_ms=None)
 
+    # phases 4-9 on one engine; phase 10's launches are its ranks' (the
+    # whole-map fields there go through the band integrator, not K2)
     launches = {k: sl["counts"][k] + war["counts"][k] + combined["counts"][k]
                 + economy["counts"][k] + pf_battle["counts"][k]
                 + render["counts"][k] for k in sl["counts"]}
+    par, kb = parallel["counts"], parallel["k1_rows"]
     kernels = [
-        k2_row("64x64 chunks", "portal_spans", launches["k2_chunk"]),
-        k2_row("256x256 map", "map_layer0", launches["k2_map"]),
+        k2_row("64x64 chunks", "portal_spans",
+               launches["k2_chunk"] + par["k2_chunk"]),
+        k2_row("256x256 map", "map_layer0", launches["k2_map"] + par["k2_map"]),
         dict(name="K1 HRVO select", route="cuda",
              source="permafrost_engine_tpu_torch/csrc/hrvo.cu",
              replaces="permafrost_engine_tpu/ops/crowd_pallas.py:315",
@@ -2298,6 +2608,12 @@ def main() -> int:
              ms=k1["exact"]["ms"], plain_ms=k1["exact"]["plain_ms"],
              bound_ms=k1["exact"]["bound_ms"], bound_by=k1["exact"]["bound_by"],
              library_ms=None),
+        dict(name=f"K1 HRVO select ({kb['rows']}-row rank bands)",
+             route="cuda", source="permafrost_engine_tpu_torch/csrc/hrvo.cu",
+             replaces="permafrost_engine_tpu/ops/crowd_pallas.py:315",
+             launches=par["k1"], max_abs_err=kb["max_abs_err"], ms=kb["ms"],
+             plain_ms=kb["plain_ms"], bound_ms=kb["bound_ms"],
+             bound_by=kb["bound_by"], library_ms=None),
     ]
     # no PyTorch call computes either kernel's function, so no library_ms
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in (

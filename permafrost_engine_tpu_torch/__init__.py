@@ -37,7 +37,9 @@ animation system), profiling and sessions (``core/perf.py``,
 with ``script/entity.py``'s entity classes, ``pf.Task``, the UI and the
 constants) with ``ops/collision.py``; and rendering (``render/raster.py``,
 ``render/scene.py``'s ``SceneRenderer`` on the engine's device, the HUD, UI
-and debug overlays, ``pf.dump_framebuffer``). Not yet: ``parallel/``.
+and debug overlays, ``pf.dump_framebuffer``); and the multi-rank mode on
+``torch.distributed`` (``parallel/``: ``spawn``, ``make_mesh``,
+``sharded_engine``, the row-banded field integrator).
 
 The shared names a caller of the port needs are re-exported here, so a
 driver script imports only this package.

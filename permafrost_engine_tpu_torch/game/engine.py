@@ -55,8 +55,9 @@ movement tick) and ``prewarm_nav`` (on the card it builds both CUDA
 libraries, so the first field build of a battle pays no ``nvcc``; on the
 CPU, where no kernel is built, it does nothing), as in the JAX engine.
 
-Not ported yet, and absent (no method returns quietly in their place):
-rendering and ``parallel/``.
+On a mesh (``parallel/step.sharded_engine``) each rank's engine holds the
+whole state, steps eagerly through the sharded tick and builds whole-map
+fields through the row-banded integrator; its host code is unchanged.
 """
 
 from __future__ import annotations
@@ -195,6 +196,10 @@ class Engine:
                                                 device=self.device)
                            if cfg.skin_joints > 0 else None)
         self.map_data = None
+        # the segment-stepper factory; parallel.step.sharded_engine swaps in
+        # the sharded one and sets `mesh`
+        self._make_scan = make_tick_scan
+        self.mesh = None
         self._build_steppers()
         self.micro_batching = True
         self._next_uid = 1
@@ -416,8 +421,8 @@ class Engine:
     def _build_steppers(self) -> None:
         """The tick and the segment stepper around the current fog heights
         and skin bank; dropping the old stepper drops its CUDA graphs."""
-        self._scan_fn = make_tick_scan(self.cfg, self._tile_height,
-                                       skin_bank=self._skin_bank)
+        self._scan_fn = self._make_scan(self.cfg, self._tile_height,
+                                        skin_bank=self._skin_bank)
         self._tick_fn = self._scan_fn.tick
 
     # -- factions / diplomacy ------------------------------------------------------

@@ -22,11 +22,18 @@ given.
 the card (``game/graphs.py``), n ticks in turn on the CPU. No substep
 synchronizes with the host or copies host data to the device, so every
 frame can be captured.
+
+On a mesh (``parallel/step.py``) the tick takes a ``RowPartition``: the
+movement substep's query side runs on the rank's entity rows, the blocker
+restamp and the flat-map fog on its row bands, and the rank gathers the
+results whole; the ops on each row are the single-device tick's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Callable
 
 import torch
 
@@ -69,42 +76,59 @@ def _grow3(x: torch.Tensor) -> torch.Tensor:
     return fog_ops.max3_cols(fog_ops.max3_rows(x))
 
 
-def _restamp_blockers(cfg: EngineConfig, ents, nav):
+def _restamp_blockers(cfg: EngineConfig, ents, nav, part=None):
     """Dense blocker rebuild: stationary collidable ground entities stamp
     their nav tile; footprint layers see the stamp dilated 1 -> 3 -> 5 -> 7
     (ref: N_BlockersIncref nav.c:4663). Returns the new blockers grid
-    i32[L, H, W]."""
+    i32[L, H, W]. With a `part` whose ``field_rows`` is a band [r0, r1),
+    this rank counts and dilates its band alone (from the rows within the
+    dilation's reach, zero beyond the map as in the whole grid) and the
+    footprint planes' bands are gathered: the counts are integers, so the
+    grid is exact."""
     h, w = cfg.field_h, cfg.field_w
+    grows = min(NUM_FOOTPRINTS, cfg.num_layers) - 1
+    r0, r1 = (0, h) if part is None or part.field_rows is None \
+        else part.field_rows
+    e0, e1 = max(r0 - grows, 0), min(r1 + grows, h)
     stationary = (ents.alive & _has(ents.flags, EntityFlags.COLLISION)
                   & ~_has(ents.flags, EntityFlags.AIR)
                   & (ents.movestate == MoveState.ARRIVED))
     c = torch.clamp((ents.pos[:, 0] / NAV_TILE_SIZE).to(torch.int32), 0, w - 1)
     r = torch.clamp((ents.pos[:, 1] / NAV_TILE_SIZE).to(torch.int32), 0, h - 1)
-    flat = torch.where(stationary, r * w + c, h * w).long()
-    counts = torch.zeros(h * w + 1, dtype=torch.int32, device=flat.device)
+    size = (e1 - e0) * w
+    flat = torch.where(stationary & (r >= e0) & (r < e1), (r - e0) * w + c,
+                       size).long()
+    counts = torch.zeros(size + 1, dtype=torch.int32, device=flat.device)
     counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
-    per_fp = [counts[:-1].reshape(h, w)]
-    for _ in range(min(NUM_FOOTPRINTS, cfg.num_layers) - 1):
+    per_fp = [counts[:-1].reshape(e1 - e0, w)]
+    for _ in range(grows):
         per_fp.append(_grow3(per_fp[-1]))
-    fp_stack = torch.stack(per_fp)
+    fp_stack = torch.stack(per_fp)[:, r0 - e0:r1 - e0]
+    if (r0, r1) != (0, h):
+        fp_stack = part.gather([fp_stack], 1)[0]
     reps = -(-cfg.num_layers // fp_stack.shape[0])
     return fp_stack.repeat(reps, 1, 1)[:cfg.num_layers].contiguous()
 
 
-def crowd_inputs(cfg: EngineConfig, state: GameState) -> dict:
+def crowd_inputs(cfg: EngineConfig, state: GameState,
+                 rows: tuple[int, int] | None = None) -> dict:
     """The front half of the movement substep: grid build, 3x3 window,
     flow/LOS sampling and the boids preferred velocity. Returns the
     intermediates the back half uses, with ``hrvo_args``: the exact
-    positional arguments of kernel K1 at this substep."""
+    positional arguments of kernel K1 at this substep.
+
+    The grids, the cohesion sums and the formation sums are built from
+    the whole arena; the per-entity (query) part runs on the entity rows
+    ``rows = (lo, hi)`` alone (all rows by default), so every returned
+    per-entity tensor has ``hi - lo`` rows and equals those rows of the
+    whole computation."""
     ents = state.ents
     n = cfg.max_ents
+    lo, hi = (0, n) if rows is None else rows
+    q = slice(lo, hi)
     dev = ents.pos.device
     movable = _has(ents.flags, EntityFlags.MOVABLE)
     ms = ents.movestate
-    moving_mask = ents.alive & (
-        (ms == MoveState.MOVING) | (ms == MoveState.TURNING)
-        | (ms == MoveState.SEEK_ENEMIES) | (ms == MoveState.ARRIVING_TO_CELL)
-        | (ms == MoveState.SURROUND_ENTITY)) & movable
 
     # ---- spatial index + 3x3 window (ref: movement.c:2768-2830) --------------
     collidable = ents.alive & _has(ents.flags, EntityFlags.COLLISION)
@@ -124,93 +148,112 @@ def crowd_inputs(cfg: EngineConfig, state: GameState) -> dict:
         fine_r=cfg.contact_cells_r, fine_c=cfg.contact_cells_c,
         fine_cap=cfg.contact_cell_cap, fine_payload=ents.radius[:, None],
         fine_cell_size=CONTACT_CELL_SIZE)
-    cand, cpos, cpay, cvalid = grid.window_candidates(sgrid, ents.pos, slots,
-                                                      window=3)
-    rel = cpos - ents.pos[:, None, :]
-    neigh_vel = cpay[..., 0:2].contiguous()
-    neigh_flock = cpay[..., 4].to(torch.int32)
-
-    # ---- desired velocity (ref: movement.c:4166, nav.c:3468) -------------------
-    chasing = ents.alive & (ents.combatstate == CombatState.MOVING_TO_TARGET)
-    chase_flat = state.factions.chase_slot.reshape(-1)
-    ent_gslot = torch.where(
-        chasing,
-        chase_flat[(torch.clamp(ents.faction, 0, cfg.max_factions - 1)
-                    * cfg.num_layers
-                    + torch.clamp(ents.layer, 0, cfg.num_layers - 1)).long()],
-        -1)
-    flow_dir, has_field = vel_ops.flow_velocity(
-        ents.pos, ents.flock, state.flocks.field_slot, state.fields.flow,
-        state.flocks.global_slot, state.fields.global_flow, ent_gslot,
-        chunks_r=cfg.chunks_r, chunks_c=cfg.chunks_c)
-    to_dest = ents.dest - ents.pos
-    dist_dest = torch.sqrt(to_dest[:, 0] * to_dest[:, 0]
-                           + to_dest[:, 1] * to_dest[:, 1])
-    has_los = vel_ops.dest_los(
-        ents.pos, ents.flock, state.flocks.los_slot, state.fields.los,
-        chunks_r=cfg.chunks_r, chunks_c=cfg.chunks_c)
-    use_arrive = ~has_field | has_los | (
-        (dist_dest < 4 * ARRIVE_SLOWING_RADIUS) & ~chasing)
-
-    max_speed_tick = ents.max_speed / float(cfg.move_hz)
     coh_centroid, coh_cnt = boids.flock_cohesion_centroids(
         ents.pos, ents.flock, collidable,
         cells_r=cfg.grid_cells_r, cells_c=cfg.grid_cells_c,
         cell_size=sgrid.cell_size, max_flocks=cfg.max_flocks)
+    keep = boids.formation_keep_force(
+        ents.pos, ents.vel, ents.flock, ents.formation_cell,
+        ents.has_formation_cell, state.flocks.formation,
+        max_flocks=cfg.max_flocks, rows=q)
+
+    # ---- the query rows ----------------------------------------------------------
+    pos, vel, flock, alive = ents.pos[q], ents.vel[q], ents.flock[q], ents.alive[q]
+    ms, movable, slots = ms[q], movable[q], slots[q]
+    moving_mask = alive & (
+        (ms == MoveState.MOVING) | (ms == MoveState.TURNING)
+        | (ms == MoveState.SEEK_ENEMIES) | (ms == MoveState.ARRIVING_TO_CELL)
+        | (ms == MoveState.SURROUND_ENTITY)) & movable
+    cand, cpos, cpay, cvalid = grid.window_candidates(sgrid, pos, slots,
+                                                      window=3)
+    rel = cpos - pos[:, None, :]
+    neigh_vel = cpay[..., 0:2].contiguous()
+    neigh_flock = cpay[..., 4].to(torch.int32)
+
+    # ---- desired velocity (ref: movement.c:4166, nav.c:3468) -------------------
+    chasing = alive & (ents.combatstate[q] == CombatState.MOVING_TO_TARGET)
+    chase_flat = state.factions.chase_slot.reshape(-1)
+    ent_gslot = torch.where(
+        chasing,
+        chase_flat[(torch.clamp(ents.faction[q], 0, cfg.max_factions - 1)
+                    * cfg.num_layers
+                    + torch.clamp(ents.layer[q], 0, cfg.num_layers - 1)).long()],
+        -1)
+    flow_dir, has_field = vel_ops.flow_velocity(
+        pos, flock, state.flocks.field_slot, state.fields.flow,
+        state.flocks.global_slot, state.fields.global_flow, ent_gslot,
+        chunks_r=cfg.chunks_r, chunks_c=cfg.chunks_c)
+    dest = ents.dest[q]
+    to_dest = dest - pos
+    dist_dest = torch.sqrt(to_dest[:, 0] * to_dest[:, 0]
+                           + to_dest[:, 1] * to_dest[:, 1])
+    has_los = vel_ops.dest_los(
+        pos, flock, state.flocks.los_slot, state.fields.los,
+        chunks_r=cfg.chunks_r, chunks_c=cfg.chunks_c)
+    use_arrive = ~has_field | has_los | (
+        (dist_dest < 4 * ARRIVE_SLOWING_RADIUS) & ~chasing)
+
+    max_speed_tick = ents.max_speed[q] / float(cfg.move_hz)
     vpref = boids.preferred_velocity(
-        ents.pos, ents.vel, ents.flock, ents.dest, flow_dir, use_arrive,
+        pos, vel, flock, dest, flow_dir, use_arrive,
         max_speed_tick, cand, cvalid, moving_mask,
         neigh_pos=cpos, neigh_vel=neigh_vel, neigh_flock=neigh_flock,
-        formation_cell=ents.formation_cell,
-        has_cell=ents.has_formation_cell,
-        flock_formation=state.flocks.formation, max_flocks=cfg.max_flocks,
-        coh_centroid=coh_centroid, coh_cnt=coh_cnt)
+        coh_centroid=coh_centroid[q], coh_cnt=coh_cnt[q], keep=keep)
     return dict(
         movable=movable, moving_mask=moving_mask, slots=slots, cgrid=cgrid,
         cvalid=cvalid, vpref=vpref, neigh_flock=neigh_flock,
         neigh_arrived=cpay[..., 5] > 0.5,
         neigh_dist=torch.sqrt(rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1]),
-        hrvo_args=(ents.pos, ents.vel, ents.radius, vpref, max_speed_tick,
+        hrvo_args=(pos, vel, ents.radius[q], vpref, max_speed_tick,
                    cpos.contiguous(), neigh_vel, cpay[..., 2].contiguous(),
                    cvalid, (cpay[..., 3] > 0.5).contiguous()))
 
 
 def movement_substep(cfg: EngineConfig, state: GameState,
-                     deltas: TickDeltas) -> tuple[GameState, TickDeltas]:
+                     deltas: TickDeltas, part=None
+                     ) -> tuple[GameState, TickDeltas]:
     """One 20 Hz movement substep (see the module docstring). Replaces
     ``state.ents``/``state.nav.blockers`` fields with new tensors and ORs
-    this substep's arrivals into ``deltas.arrived``."""
+    this substep's arrivals into ``deltas.arrived``.
+
+    With a ``RowPartition`` `part`, the query side (window, preferred
+    velocity, K1, arrival propagation, contact projection, integration)
+    runs on the rank's entity rows ``part.ents`` alone; the changed
+    columns are then gathered whole, and the blocker restamp reads them."""
     ents = state.ents
-    x = crowd_inputs(cfg, state)
+    lo, hi = (0, cfg.max_ents) if part is None else part.ents
+    q = slice(lo, hi)
+    x = crowd_inputs(cfg, state, (lo, hi))
     movable, moving_mask, slots = x["movable"], x["moving_mask"], x["slots"]
     cvalid, vpref = x["cvalid"], x["vpref"]
+    pos, alive, flock, radius = (ents.pos[q], ents.alive[q], ents.flock[q],
+                                 ents.radius[q])
 
     # ---- HRVO solve (ref: clearpath.c:694): kernel K1 ------------------------
     raw = hrvo_select(*x["hrvo_args"], exact=cfg.clearpath_exact)
     new_vel = torch.where(moving_mask[:, None], raw, vpref)
 
     # ---- group arrival propagation ---------------------------------------------
-    garrisoned = _has(ents.flags, EntityFlags.GARRISONED)
-    neigh_same_flock = (cvalid & (x["neigh_flock"] == ents.flock[:, None])
-                        & (ents.flock[:, None] >= 0))
+    garrisoned = _has(ents.flags[q], EntityFlags.GARRISONED)
+    neigh_same_flock = (cvalid & (x["neigh_flock"] == flock[:, None])
+                        & (flock[:, None] >= 0))
     flock_arrived = (neigh_same_flock & x["neigh_arrived"]
                      & (x["neigh_dist"] < 10.0)).any(dim=1)
 
     # ---- de-penetration pushout over the fine contact grid --------------------
-    _, kpos, kpay, kvalid = grid.contact_candidates(x["cgrid"], ents.pos,
-                                                    slots)
-    krel = kpos - ents.pos[:, None, :]
+    _, kpos, kpay, kvalid = grid.contact_candidates(x["cgrid"], pos, slots)
+    krel = kpos - pos[:, None, :]
     kdist = torch.sqrt(krel[..., 0] * krel[..., 0] + krel[..., 1] * krel[..., 1])
     krad = kpay[..., 0]
-    depth = (ents.radius[:, None] + krad) * 0.9 - kdist
+    depth = (radius[:, None] + krad) * 0.9 - kdist
     over = torch.where(kvalid & (depth > 0.0), depth, 0.0)
-    away = (ents.pos[:, None, :] - kpos) / torch.clamp(kdist, min=1e-3)[..., None]
+    away = (pos[:, None, :] - kpos) / torch.clamp(kdist, min=1e-3)[..., None]
     push = (away * (0.5 * over)[..., None]).sum(1)
     pmag = torch.sqrt(push[:, 0] * push[:, 0] + push[:, 1] * push[:, 1])[:, None]
     push = torch.where(pmag > _DEPEN_CAP,
                        push * (_DEPEN_CAP / torch.clamp(pmag, min=1e-6)), push)
-    depen_ok = (ents.alive & movable & ~garrisoned
-                & (ents.combatstate != CombatState.CORPSE))
+    depen_ok = (alive & movable & ~garrisoned
+                & (ents.combatstate[q] != CombatState.CORPSE))
     depen = torch.where(depen_ok[:, None], push, 0.0)
 
     # ---- contact velocity projection: the 4 deepest overlaps --------------------
@@ -227,19 +270,22 @@ def movement_substep(cfg: EngineConfig, state: GameState,
             new_vel - vn * n_i, new_vel)
 
     upd = integ_ops.movement_update(
-        alive=ents.alive, moving_mask=moving_mask, pos=ents.pos,
-        new_vel=new_vel, dest=ents.dest, movestate=ents.movestate,
-        facing=ents.facing, vel_hist=ents.vel_hist,
-        vel_hist_idx=ents.vel_hist_idx, wait_ticks=ents.wait_ticks,
-        stuck_ticks=ents.stuck_ticks, layer=ents.layer,
+        alive=alive, moving_mask=moving_mask, pos=pos,
+        new_vel=new_vel, dest=ents.dest[q], movestate=ents.movestate[q],
+        facing=ents.facing[q], vel_hist=ents.vel_hist[q],
+        vel_hist_idx=ents.vel_hist_idx[q], wait_ticks=ents.wait_ticks[q],
+        stuck_ticks=ents.stuck_ticks[q], layer=ents.layer[q],
         cost_base=state.nav.cost_base, blockers=state.nav.blockers,
         garrisoned=garrisoned, flock_arrived=flock_arrived,
-        has_cell=ents.has_formation_cell, depen=depen)
+        has_cell=ents.has_formation_cell[q], depen=depen, slot=slots)
+    if part is not None:
+        names = list(upd)
+        upd = dict(zip(names, part.gather([upd[k] for k in names], 0)))
     arrived = upd.pop("arrived")
     ents.prev_pos = ents.pos
     for name, value in upd.items():
         setattr(ents, name, value)
-    state.nav.blockers = _restamp_blockers(cfg, ents, state.nav)
+    state.nav.blockers = _restamp_blockers(cfg, ents, state.nav, part)
     deltas.arrived = deltas.arrived | arrived
     return state, deltas
 
@@ -274,15 +320,24 @@ def combat_substep(cfg: EngineConfig, state: GameState, deltas: TickDeltas):
     return state, deltas
 
 
-def fog_substep(cfg: EngineConfig, state: GameState, tile_height=None):
+def fog_substep(cfg: EngineConfig, state: GameState, tile_height=None,
+                part=None):
     """Recompute every faction's fog plane (``tile_height`` f32[TH, TW]
-    selects the height-aware shadowcaster)."""
+    selects the height-aware shadowcaster). With a `part` whose
+    ``fog_rows`` is a band and no ``tile_height``, this rank computes its
+    band of tile rows from the whole entity columns and the bands are
+    gathered; the shadowcaster's viewer cap is global, so with heights
+    every rank computes the whole planes."""
     ents = state.ents
-    state.fog.state = fog_ops.update_fog(
+    rows = None
+    if part is not None and tile_height is None:
+        rows = part.fog_rows
+    new = fog_ops.update_fog(
         state.fog.state, state.fog.enabled, ents.pos,
         ents.alive & (ents.hp > 0.0), ents.faction, ents.vision_range,
         tile_height, tiles_h=cfg.tiles_h, tiles_w=cfg.tiles_w,
-        max_factions=cfg.max_factions)
+        max_factions=cfg.max_factions, rows=rows)
+    state.fog.state = new if rows is None else part.gather([new], 1)[0]
     return state
 
 
@@ -297,7 +352,24 @@ def cadence_period(cfg: EngineConfig) -> int:
     return math.lcm(*periods)
 
 
-def make_tick(cfg: EngineConfig, tile_height=None, skin_bank=None):
+@dataclasses.dataclass(frozen=True)
+class RowPartition:
+    """One rank's share of the tick on a mesh (``parallel/step.py`` builds
+    it): the entity rows ``ents = (lo, hi)`` whose query side the rank
+    computes, the row bands of the nav grids (``field_rows``) and of the
+    fog planes (``fog_rows``) it computes when the map is row-sharded
+    (None: the whole grid on every rank), and ``gather(bands, dim)``,
+    which concatenates every rank's band of each tensor along `dim`, in
+    rank order, and returns the whole tensors."""
+
+    ents: tuple[int, int]
+    gather: Callable[[list, int], list]
+    field_rows: tuple[int, int] | None = None
+    fog_rows: tuple[int, int] | None = None
+
+
+def make_tick(cfg: EngineConfig, tile_height=None, skin_bank=None,
+              part: RowPartition | None = None):
     """The 60 Hz tick ``(state, acc) -> (state, acc)``: advances the host
     frame counter (and ``state.anim.tick``, its device copy, when the state
     skins) and runs, in the JAX tick's order, movement every ``FRAME_HZ //
@@ -309,7 +381,9 @@ def make_tick(cfg: EngineConfig, tile_height=None, skin_bank=None):
     accumulator `acc` in place (merging a frame's empty deltas is the
     identity, so a frame without a substep touches nothing).
     `tile_height` (f32[TH, TW] on the state's device, or None) makes fog
-    height-aware."""
+    height-aware. With `part` (a ``RowPartition``) the movement, blocker
+    and fog work is divided over a mesh's ranks; every other substep runs
+    whole on every rank."""
     move_period = FRAME_HZ // cfg.move_hz
     combat_period = FRAME_HZ // cfg.combat_hz
     proj_period = FRAME_HZ // 30
@@ -324,7 +398,7 @@ def make_tick(cfg: EngineConfig, tile_height=None, skin_bank=None):
         if state.anim is not None:
             state.anim.tick += 1
         if t % move_period == 0:
-            state, acc = movement_substep(cfg, state, acc)
+            state, acc = movement_substep(cfg, state, acc, part)
         if t % combat_period == 0:
             state, acc = combat_substep(cfg, state, acc)
         if t % proj_period == 0:
@@ -333,7 +407,7 @@ def make_tick(cfg: EngineConfig, tile_height=None, skin_bank=None):
             state, acc, expired = combat_ops.corpse_substep(cfg, state, acc)
             acc.corpse_expired = acc.corpse_expired | expired
         if t % fog_period == 0:
-            state = fog_substep(cfg, state, tile_height)
+            state = fog_substep(cfg, state, tile_height, part)
         if skins and t % skin_period == 0:
             state = skin_ops.skin_substep(cfg, skin_bank, state)
         return state, acc

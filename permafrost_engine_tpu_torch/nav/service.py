@@ -117,6 +117,10 @@ class NavService:
         self._pending_dirty: set[int] = set()
         self._graphs: dict[int, pt.PortalGraph] = {}
         self._islands: dict[int, np.ndarray] = {}
+        # the row-banded whole-map integrator (parallel/fields.py), set by
+        # parallel.step.sharded_engine on a row-sharded mesh: whole-map
+        # seek and surround fields are then integrated over the rank bands
+        self.sharded_integrate = None
         self.flow_cache = LruSlab(cfg.field_slab_slots)
         self.los_cache = LruSlab(cfg.los_slab_slots)
         self.slot_mirror = np.full((cfg.max_flocks, cfg.num_chunks), -1, np.int64)
@@ -476,6 +480,17 @@ class NavService:
         rr, cc = np.nonzero(ok)
         i = int(np.argmin(np.maximum(np.abs(rr - sr), np.abs(cc - sc))))
         return int(isl[rr[i], cc[i]]), int(rr[i]), int(cc[i])
+
+    def request_path(self, state: GameState, flock_id: int, start_xz,
+                     goal_xz, layer: int):
+        """Plan one path and install its chunk fields for a flock: a batch
+        of one ``request_paths``. Returns (state, reachable, effective
+        goal xz); an unreachable goal retargets to the closest tile of the
+        start's island, and a failed request clears the flock's tables."""
+        state, results = self.request_paths(
+            state, [(flock_id, start_xz, goal_xz, layer)])
+        ok, eff = results[0]
+        return state, ok, eff
 
     def request_paths(self, state: GameState, reqs):
         """Plan many path requests with batched device work; `reqs` are
@@ -882,6 +897,12 @@ class NavService:
         None writes the slab only (the per-faction chase fields)."""
         if not specs:
             return state
+        if self.sharded_integrate is not None and len(specs) > 1:
+            # a sharded engine builds one field at a time through the
+            # banded integrator, as the JAX service does
+            for sp in specs:
+                state = self.build_enemy_seek_fields_batch(state, [sp])
+            return state
         cfg, dev = self.cfg, self.device
         h, w = cfg.field_h, cfg.field_w
         facs = torch.as_tensor([sp[0] for sp in specs], dtype=torch.long,
@@ -929,10 +950,16 @@ class NavService:
         cfg, dev = self.cfg, self.device
         lay = torch.as_tensor(layers, dtype=torch.long, device=dev)
         cost = state.nav.cost_base[lay]
-        # the JAX package runs this on XLA (ff.integrate, the same sweeps);
-        # K2 integrates whole maps too, one thread-block cluster per field
-        integ = integrate(cost, seeds.contiguous(),
-                          max_iters=4 * max(cfg.field_h, cfg.field_w))
+        if self.sharded_integrate is not None:
+            # over the rank bands with a halo exchange, one layer at a time
+            integ = torch.stack([self.sharded_integrate(c, s)
+                                 for c, s in zip(cost, seeds)])
+        else:
+            # the JAX package runs this on XLA (ff.integrate, the same
+            # sweeps); K2 integrates whole maps too, one thread-block
+            # cluster per field
+            integ = integrate(cost, seeds.contiguous(),
+                              max_iters=4 * max(cfg.field_h, cfg.field_w))
         sl = torch.as_tensor(slots, dtype=torch.long, device=dev)
         state.fields.global_flow[sl] = ff.flow_dirs(integ, cost)
         owned = [(f, s) for f, s in zip(flock_ids, slots) if f is not None]

@@ -158,12 +158,14 @@ def _flock_sums(idx, vals, rows: int) -> torch.Tensor:
 
 
 def formation_keep_force(pos, vel, flock, cell, has_cell, flock_formation,
-                         max_flocks: int):
+                         max_flocks: int, rows: slice = slice(None)):
     """Formation cohesion + drag toward the unit's cell offset from the
     moving flock centroid; zero for flocks without a FormationType. The
     per-flock sums are exact (``_flock_sums``), where the JAX version adds
     in f32 in scatter order: the centroids agree to the f32 sum's rounding
-    and, unlike an f32 atomic scatter, are the same on every run."""
+    and, unlike an f32 atomic scatter, are the same on every run. The sums
+    run over every entity; the force is returned for the entities `rows`
+    (all by default)."""
     dev = pos.device
     in_formation = flock_formation[torch.clamp(flock, 0, max_flocks - 1).long()] > 0
     m = has_cell & (flock >= 0) & in_formation
@@ -176,6 +178,7 @@ def formation_keep_force(pos, vel, flock, cell, has_cell, flock_formation,
     csum = _flock_sums(idx, cell * m2, max_flocks + 1)
     denom = torch.clamp(cnt, min=1.0)[:, None]
     pc, cc = psum / denom, csum / denom
+    m, idx, pos, vel, cell = m[rows], idx[rows], pos[rows], vel[rows], cell[rows]
     target = pc[idx] + (cell - cc[idx])
     keep = truncate(target - pos, MAX_FORCE) * FORMATION_COHESION_FORCE
     near_cell = _norm(cell - pos) < CELL_ARRIVAL_RADIUS
@@ -186,12 +189,13 @@ def formation_keep_force(pos, vel, flock, cell, has_cell, flock_formation,
 def preferred_velocity(pos, vel, flock, dest, flow_dir, use_arrive,
                        max_speed_tick, neigh_idx, neigh_valid, moving, *,
                        neigh_pos, neigh_vel, neigh_flock, coh_centroid,
-                       coh_cnt, formation_cell=None, has_cell=None,
-                       flock_formation=None, max_flocks: int = 0):
+                       coh_cnt, keep=None):
     """Combined steering -> preferred per-tick velocity for the HRVO solve
     (ref: movement.c:3414-3452); zero for entities not moving. Neighbour
     attributes come from the grid window's payload, cohesion from
-    ``flock_cohesion_centroids`` (the movement substep's only form)."""
+    ``flock_cohesion_centroids`` (the movement substep's only form), and
+    `keep` is the formation keep force (``formation_keep_force``; None
+    without formations)."""
     seek = torch.where(use_arrive[..., None],
                        arrive_force(pos, dest, vel, max_speed_tick),
                        flow_follow_force(flow_dir, vel, max_speed_tick))
@@ -200,11 +204,8 @@ def preferred_velocity(pos, vel, flock, dest, flow_dir, use_arrive,
     ali = alignment_force(vel, flock, neigh_idx, neigh_valid, neigh_pos,
                           neigh_vel, neigh_flock, pos)
     total = seek + sep + coh + ali
-    if (formation_cell is not None and has_cell is not None
-            and flock_formation is not None and max_flocks):
-        total = total + formation_keep_force(
-            pos, vel, flock, formation_cell, has_cell, flock_formation,
-            max_flocks)
+    if keep is not None:
+        total = total + keep
     total = truncate(total, MAX_FORCE)
     vpref = truncate(vel + total, max_speed_tick)
     return torch.where(moving[..., None], vpref, 0.0)

@@ -130,6 +130,56 @@ def flow_dirs(integ: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
     return torch.where(have_dir, best_idx + 1, 0).to(torch.uint8)
 
 
+def los_field_iter(passable: torch.Tensor, goal_r, goal_c, *,
+                   max_iters: int = 2 * FIELD_RES) -> torch.Tensor:
+    """The LOS rule by monotone fixed-point iteration (ref:
+    field.c:435-537; JAX ``flowfield.los_field_iter``), the oracle
+    ``los_field`` evaluates in closed form: a tile sees the goal when it is
+    passable and its octile neighbour one step toward the goal sees it,
+    where a diagonal step also needs both orthogonal tiles toward the goal
+    passable. Sweeps run in bundles of 8 until a bundle changes nothing or
+    `max_iters` sweeps ran. Batched over leading dims of `passable`, with
+    scalar or matching-batch goals. Returns u8[..., H, W], 1 where
+    visible."""
+    h, w = passable.shape[-2], passable.shape[-1]
+    dev = passable.device
+    p = passable.bool()
+    rows = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    cols = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    gr = torch.as_tensor(goal_r, dtype=torch.int32, device=dev)[..., None, None]
+    gc = torch.as_tensor(goal_c, dtype=torch.int32, device=dev)[..., None, None]
+    dr, dc = torch.sign(gr - rows), torch.sign(gc - cols)
+    los = (rows == gr) & (cols == gc) & p
+
+    def upstream(x, sr, sc):
+        """x at (r + sr, c + sc) for per-tile steps sr, sc in {-1, 0, 1}."""
+        out = torch.zeros(torch.broadcast_shapes(x.shape, sr.shape, sc.shape),
+                          dtype=torch.bool, device=dev)
+        for odr in (-1, 0, 1):
+            for odc in (-1, 0, 1):
+                if odr or odc:
+                    out = torch.where((sr == odr) & (sc == odc),
+                                      shift2d(x, odr, odc, False), out)
+        return out
+
+    zero = torch.zeros_like(dc)
+    corner_ok = torch.where((dr != 0) & (dc != 0),
+                            upstream(p, dr, torch.zeros_like(dr))
+                            & upstream(p, zero, dc), True)
+    grow = p & corner_ok
+    i = 0
+    while i < max_iters:
+        new = los
+        for _ in range(8):
+            new = new | (upstream(new, dr, dc) & grow)
+        i += 8
+        done = torch.equal(new, los)
+        los = new
+        if done:
+            break
+    return los.to(torch.uint8)
+
+
 def los_field(passable: torch.Tensor, goal_r, goal_c) -> torch.Tensor:
     """Line-of-sight field from a goal tile, in closed form (ref:
     field.c:435-537; JAX ``flowfield.los_field``): los(t) is the AND of

@@ -28,6 +28,8 @@ VISION_BUCKET_RADII = (4, 8, 12, 16)
 
 # per 4-tile radius increment: (full 3x3 steps, cross steps)
 _DILATE_STAGES = ((2, 2), (1, 3), (2, 2), (2, 2))
+# rows the whole cascade reaches: every step grows a mask by one row
+DILATE_REACH = sum(full + cross for full, cross in _DILATE_STAGES)
 
 
 @functools.cache
@@ -62,10 +64,15 @@ def _dilate_stage(x: torch.Tensor, full: int, cross: int) -> torch.Tensor:
 
 def update_fog(fog_state, enabled, pos, alive, faction, vision_range,
                tile_height=None, *, tiles_h: int, tiles_w: int,
-               max_factions: int) -> torch.Tensor:
+               max_factions: int, rows: tuple[int, int] | None = None
+               ) -> torch.Tensor:
     """New fog planes u8[F, TH, TW] (FogState codes) from the entities'
     positions f32[N, 2], liveness, factions and vision ranges (world
-    units); every tile VISIBLE when fog is disabled."""
+    units); every tile VISIBLE when fog is disabled. With `rows` = (r0,
+    r1) on a flat map, only tile rows [r0, r1): u8[F, r1 - r0, TW], equal
+    to those rows of the whole planes (the occupancy within
+    ``DILATE_REACH`` rows of the band is dilated; the shadowcaster has no
+    band, and raises)."""
     n = pos.shape[0]
     dev = pos.device
     nb = len(VISION_BUCKET_RADII)
@@ -79,7 +86,11 @@ def update_fog(fog_state, enabled, pos, alive, faction, vision_range,
     bucket = torch.clamp((vr_tiles[:, None] > radii[None, :]).sum(1), 0, nb - 1)
     ok = alive & (faction >= 0) & (vision_range > 0)
 
+    r0, r1 = (0, tiles_h) if rows is None else rows
     if tile_height is not None:
+        if rows is not None:
+            raise ValueError("update_fog: the shadowcaster computes whole "
+                             "planes only")
         # dedupe viewers by (faction, tile): same-tile viewers with the max
         # vision see a superset of the rest; capacity max(1024, N/4) unique
         # tiles, overflow tiles see nothing until the next update
@@ -105,20 +116,25 @@ def update_fog(fog_state, enabled, pos, alive, faction, vision_range,
             radius=VISION_BUCKET_RADII[-1], tiles_h=tiles_h, tiles_w=tiles_w,
             max_factions=max_factions)
     else:
+        # the band and the rows within the cascade's reach; beyond the
+        # map the planes are zero, as in the whole planes
+        e0, e1 = max(r0 - DILATE_REACH, 0), min(r1 + DILATE_REACH, tiles_h)
+        bplane = (e1 - e0) * tiles_w
         chan = faction * nb + bucket
         nchan = max_factions * nb
-        flat = torch.where(ok, chan * plane + r * tiles_w + c,
-                           nchan * plane).long()
-        occ = torch.zeros(nchan * plane + 1, dtype=torch.uint8, device=dev)
+        flat = torch.where(ok & (r >= e0) & (r < e1),
+                           chan * bplane + (r - e0) * tiles_w + c,
+                           nchan * bplane).long()
+        occ = torch.zeros(nchan * bplane + 1, dtype=torch.uint8, device=dev)
         occ.index_fill_(0, flat, 1)  # max with 1 is a set
-        occ = occ[:-1].reshape(max_factions, nb, tiles_h, tiles_w)
+        occ = occ[:-1].reshape(max_factions, nb, e1 - e0, tiles_w)
         x = occ[:, nb - 1]
         for i, (full, cross) in enumerate(reversed(_DILATE_STAGES)):
             x = _dilate_stage(x, full, cross)
             if i < nb - 1:
                 x = torch.maximum(x, occ[:, nb - 2 - i])
-        visible = x > 0
-    explored = fog_state > FogState.UNEXPLORED
+        visible = x[:, r0 - e0:r1 - e0] > 0
+    explored = fog_state[:, r0:r1] > FogState.UNEXPLORED
     new = torch.where(
         visible, int(FogState.VISIBLE),
         torch.where(explored, int(FogState.IN_FOG),

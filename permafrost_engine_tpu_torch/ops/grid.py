@@ -8,14 +8,16 @@ sort and the ranks fix which entities overflow a full bucket, and the
 buckets match the JAX version's exactly. Window queries gather the 3x3
 neighbourhood's bucket rows per query.
 
-``nearest_match`` is combat's exact nearest-target query. ``knn_query`` is
-not on the ported path.
+``nearest_match`` is combat's exact nearest-target query. ``build_grid``
+(one grid, slot order within a cell) and ``central_block_cols`` are the
+JAX module's public helpers; ``knn_query`` is not on the ported path.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from permafrost_engine_tpu_torch.core.config import SPATIAL_CELL_SIZE
@@ -29,7 +31,7 @@ class SpatialGrid:
     buckets: torch.Tensor          # i32[cells, cap] entity slots or -1
     bucket_xy: torch.Tensor        # f32[cells, cap, 2] positions (1e30 empty)
     cell_of: torch.Tensor          # i32[N] flat cell per entity (dead: cells)
-    bucket_payload: torch.Tensor   # f32[cells, cap, P]
+    bucket_payload: torch.Tensor | None   # f32[cells, cap, P]
     cells_r: int
     cells_c: int
     cell_size: float = SPATIAL_CELL_SIZE
@@ -54,6 +56,53 @@ def cell_coords(pos: torch.Tensor, cells_r: int, cells_c: int,
     c = torch.clamp((pos[..., 0] / cell_size).to(torch.int32), 0, cells_c - 1)
     r = torch.clamp((pos[..., 1] / cell_size).to(torch.int32), 0, cells_r - 1)
     return r, c
+
+
+def build_grid(pos, alive, *, cells_r: int, cells_c: int, cap: int,
+               payload=None, cell_size: float = SPATIAL_CELL_SIZE
+               ) -> SpatialGrid:
+    """Bin alive entities into fixed-capacity cell buckets, in slot order
+    within a cell (one stable sort by cell). Entities past `cap` in a cell
+    are dropped from the index (ref: src/game/clearpath.c:390's bounded
+    query outputs). `payload` f32[N, P] rides along in ``bucket_payload``
+    (None without one)."""
+    n = pos.shape[0]
+    num_cells = cells_r * cells_c
+    r, c = cell_coords(pos, cells_r, cells_c, cell_size)
+    cell = torch.where(alive, r * cells_c + c, num_cells)
+    sorted_cell, order = torch.sort(cell, stable=True)
+    rank = (torch.arange(n, device=pos.device)
+            - torch.searchsorted(sorted_cell, sorted_cell))
+    valid = (sorted_cell < num_cells) & (rank < cap)
+    slot = torch.where(valid, sorted_cell * cap + rank, num_cells * cap)
+    total = num_cells * cap
+    pay = None
+    if payload is not None:
+        pay = _scatter(slot, total, payload[order].to(torch.float32), 0.0
+                       ).reshape(num_cells, cap, payload.shape[1])
+    return SpatialGrid(
+        buckets=_scatter(slot, total, order.to(torch.int32), -1
+                         ).reshape(num_cells, cap),
+        bucket_xy=_scatter(slot, total, pos[order], 1e30
+                           ).reshape(num_cells, cap, 2),
+        cell_of=cell.to(torch.int32), bucket_payload=pay,
+        cells_r=cells_r, cells_c=cells_c, cell_size=cell_size)
+
+
+def central_block_cols(window: int, sub: int, cap: int) -> np.ndarray:
+    """Static column indices selecting the central (sub x sub)-cell blocks
+    out of a (window x window) candidate row from ``window_candidates``,
+    each block's `cap` columns in order."""
+    if sub > window or (window - sub) % 2:
+        raise ValueError(f"no central {sub}x{sub} block in a {window}x"
+                         f"{window} window")
+    off = (window - sub) // 2
+    cols = []
+    for dr in range(off, off + sub):
+        for dc in range(off, off + sub):
+            b = dr * window + dc
+            cols.extend(range(b * cap, (b + 1) * cap))
+    return np.asarray(cols, np.int32)
 
 
 def _scatter(slot: torch.Tensor, total: int, val: torch.Tensor, fill):

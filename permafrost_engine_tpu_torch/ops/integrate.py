@@ -82,9 +82,11 @@ def tile_passable(pos, layer, cost_base, blockers):
 def movement_update(*, alive, moving_mask, pos, new_vel, dest, movestate,
                     facing, vel_hist, vel_hist_idx, wait_ticks, stuck_ticks,
                     layer, cost_base, blockers, garrisoned, flock_arrived,
-                    has_cell, depen=None):
+                    has_cell, depen=None, slot=None):
     """One movement-tick integration pass. Returns a dict of updated fields
-    plus an `arrived` event mask (see the JAX function for the rules)."""
+    plus an `arrived` event mask (see the JAX function for the rules).
+    `slot` i32[N] holds the rows' arena slots (default 0..N-1), which set
+    each unit's wait jitter."""
     dev = pos.device
     st = movestate
     was_moving = moving_mask & alive
@@ -152,7 +154,9 @@ def movement_update(*, alive, moving_mask, pos, new_vel, dest, movestate,
                 & ~arrived_now)
     waiting = st == MoveState.WAITING
     new_wait = torch.where(waiting, torch.clamp(wait_ticks - 1, min=0), wait_ticks)
-    jitter = torch.arange(pos.shape[0], dtype=torch.int32, device=dev) % 16
+    if slot is None:
+        slot = torch.arange(pos.shape[0], dtype=torch.int32, device=dev)
+    jitter = slot % 16
     new_wait = torch.where(wait_now, WAIT_TICKS + 4 * jitter, new_wait)
     wait_done = waiting & (new_wait == 0)
 

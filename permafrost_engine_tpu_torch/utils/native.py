@@ -1,14 +1,16 @@
-"""ctypes binding of the native portal A* (``native/pf_native.cpp``).
+"""ctypes bindings of the native host library (``native/pf_native.cpp``).
 
-The port's own copy of the A* half of ``permafrost_engine_tpu/utils/native.py``.
+The port's own copy of ``permafrost_engine_tpu/utils/native.py``: the
+portal A* (``astar_csr``), the PFMAP tile-record parser (``parse_tiles``)
+and the exact grid Dijkstra (``grid_dijkstra``).
 At first use it builds the repository's ``native/pf_native.cpp`` with g++
 into the port's ``_build/`` (listed in ``.gitignore``), keyed by a hash of
 the source, the flags and what ``-march=native`` means on this host (g++'s
 predefined macros for it), so a build directory copied to a host with
 another CPU is rebuilt there rather than loaded; it never writes
 ``native/libpf_native.so``. The library is an accelerator, not a
-dependency: if it cannot be built or loaded, ``astar_csr`` returns None and
-the caller runs its pure-Python A*.
+dependency: if it cannot be built or loaded, every entry returns None and
+the caller runs its pure-Python version.
 """
 
 from __future__ import annotations
@@ -64,6 +66,16 @@ def lib() -> ctypes.CDLL | None:
 
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C")
+    i16p = np.ctypeslib.ndpointer(np.int16, flags="C")
+    _lib.parse_pfmap_tiles.restype = ctypes.c_int64
+    _lib.parse_pfmap_tiles.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        u8p, i8p, u8p, i16p, i16p, u8p, u8p, u8p, u8p, u8p]
+    _lib.grid_dijkstra.restype = None
+    _lib.grid_dijkstra.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64, i64p, ctypes.c_int64, f32p]
     _lib.astar_portals.restype = ctypes.c_int64
     _lib.astar_portals.argtypes = [
         ctypes.c_int64, i64p, i64p, f32p, f32p, f32p,
@@ -96,3 +108,56 @@ def astar_csr(adj_off, adj_dst, adj_cost, node_r, node_c,
     if n < 0:
         return "unreachable"
     return [int(x) for x in out[:n]]
+
+
+def parse_tiles(tile_text: str, n_tiles: int):
+    """Parse `n_tiles` PFMAP tile records (24-character tokens, in file
+    order) natively; returns a dict of arrays (``tile_type``,
+    ``base_height``, ``ramp_height``, ``top_mat``, ``side_mat``,
+    ``pathable``, ``blend_normals``, ``no_bump``, ``cover``,
+    ``edge_blend`` [n, 4]), or None if the library is unavailable or the
+    text holds fewer well-formed records."""
+    L = lib()
+    if L is None:
+        return None
+    out = {
+        "tile_type": np.zeros(n_tiles, np.uint8),
+        "base_height": np.zeros(n_tiles, np.int8),
+        "ramp_height": np.zeros(n_tiles, np.uint8),
+        "top_mat": np.zeros(n_tiles, np.int16),
+        "side_mat": np.zeros(n_tiles, np.int16),
+        "pathable": np.zeros(n_tiles, np.uint8),
+        "blend_normals": np.zeros(n_tiles, np.uint8),
+        "no_bump": np.zeros(n_tiles, np.uint8),
+        "cover": np.zeros(n_tiles, np.uint8),
+        "edge_blend": np.zeros(n_tiles * 4, np.uint8),
+    }
+    data = tile_text.encode()
+    n = L.parse_pfmap_tiles(
+        data, len(data), n_tiles,
+        out["tile_type"], out["base_height"], out["ramp_height"],
+        out["top_mat"], out["side_mat"], out["pathable"],
+        out["blend_normals"], out["no_bump"], out["cover"], out["edge_blend"])
+    if n != n_tiles:
+        return None
+    for k in ("pathable", "blend_normals", "no_bump"):
+        out[k] = out[k].astype(bool)
+    out["edge_blend"] = out["edge_blend"].reshape(n_tiles, 4)
+    return out
+
+
+def grid_dijkstra(cost: np.ndarray, seeds_flat: np.ndarray
+                  ) -> np.ndarray | None:
+    """Exact serial Dijkstra over u8[H, W] costs (255 impassable; octile
+    steps, no corner cutting) from the flat seed indices: f32[H, W]
+    distances, 1e30 where unreachable. None if the library is
+    unavailable."""
+    L = lib()
+    if L is None:
+        return None
+    h, w = cost.shape
+    dist = np.zeros(h * w, np.float32)
+    L.grid_dijkstra(np.ascontiguousarray(cost, np.uint8), h, w,
+                    np.ascontiguousarray(seeds_flat, np.int64),
+                    len(seeds_flat), dist)
+    return dist.reshape(h, w)

@@ -157,6 +157,7 @@ _NO_JAX = """
 import sys
 import numpy as np
 import permafrost_engine_tpu_torch
+import permafrost_engine_tpu_torch.parallel
 from permafrost_engine_tpu_torch.core.config import EngineConfig, MoveState
 from permafrost_engine_tpu_torch.game.engine import Engine
 cfg = EngineConfig(max_ents=16, chunks_r=1, chunks_c=2, num_layers=1,
@@ -287,7 +288,8 @@ def test_port_imports_no_jax():
     ``pf.step``) and renders through it (``pf.dump_framebuffer``, a frame
     with a debug overlay and the HUD, and the minimap; every ``render``
     module, ``ops/quilt``, ``utils/image`` and ``utils/noise`` imported),
-    without importing jax, jaxlib, flax or anything of the JAX package."""
+    and imports the multi-rank package (``parallel``), without importing
+    jax, jaxlib, flax or anything of the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = _REPO
     env["OMP_NUM_THREADS"] = "1"

@@ -177,9 +177,14 @@ def test_boids_preferred_velocity():
                   flock_formation=js.flocks.formation, max_flocks=cfg.max_flocks,
                   coh_centroid=wc, coh_cnt=wn)
     want = jboids.preferred_velocity(*args, **kwargs)
-    got = tboids.preferred_velocity(*[_t(a) for a in args],
-                                    **{k: (_t(v) if not isinstance(v, int) else v)
-                                       for k, v in kwargs.items()})
+    keep = tboids.formation_keep_force(
+        _t(e.pos), _t(e.vel), _t(e.flock), _t(e.formation_cell),
+        _t(e.has_formation_cell), _t(js.flocks.formation), cfg.max_flocks)
+    got = tboids.preferred_velocity(
+        *[_t(a) for a in args], keep=keep,
+        **{k: _t(v) for k, v in kwargs.items() if k in (
+            "neigh_pos", "neigh_vel", "neigh_flock", "coh_centroid",
+            "coh_cnt")})
     np.testing.assert_allclose(got.numpy(), _n(want), atol=1e-5)
     assert np.abs(_n(want)).sum() > 1.0
 
