@@ -183,9 +183,28 @@ package beside it. Phases, each printing its own line:
    single-device eager frame, the band integrator's ms and sweeps against
    K2's time for the same field, and each rank's peak memory.
 
+11. the system's entry points (``phase_entry``, ``demos/`` and ``tools/``
+   of the port), all on the card: ``demos/stress.py --units 5000`` (build
+   and ``main``'s loop, 20 simulated seconds of ``step_scan(60)``, fps per
+   second, alive and deaths; fails unless K1 and K2, chunks and whole maps,
+   launched, no position or hp is NaN and living units plus deaths are
+   10,000); ``grid.knn_query`` (k=32, window 5) over the battle's final
+   10,256 positions, equal to the same call on a CPU copy (idx, and dist
+   within 1e-5 relative) and to a brute force on 256 rows, with its ms;
+   ``preferred_velocity``'s fallbacks (arena gathers, per-pair cohesion)
+   against its CPU result; ``rts_demo``, ``campaign``, ``pong``,
+   ``editor`` and ``viewer`` (3 s at 64 units) through their ``main``;
+   ``scripts/rts/main.py`` and ``scripts/editor/main.py`` through ``python
+   -m permafrost_engine_tpu_torch.tools.launcher`` in subprocesses (rc 0,
+   their completion lines, no JAX module loaded there); the live viewer
+   behind its HTTP handler on 127.0.0.1 (a ``POST /input`` click selects a
+   unit and a right click orders it; ``GET /frame.png``); and
+   ``export_replay`` over 120 frames. Where Pillow is absent (printed),
+   the frame route and the replay stop at the rendered u8 frame.
+
 The script imports only the port and fails if any ``jax``/``jaxlib``/
 ``flax`` module or anything of the JAX package (``permafrost_engine_tpu``)
-was loaded. Before the last line come one JSON object with per-kernel
+was loaded, in this process or in the launcher's. Before the last line come one JSON object with per-kernel
 numbers (time, plain time, the card's least time for the work and what
 sets it, launches on the main path) and the card's name and power limit;
 the last is ``{"ok": true, "device": {...}}``. Details go to
@@ -2514,6 +2533,323 @@ def phase_parallel(dev):
     return res
 
 
+# phase 11: the system's entry points on the card
+ENTRY_UNITS = 5000           # demos/stress.py --units 5000: BASELINE #5's battle
+ENTRY_SECONDS = 20           # its default simulated seconds
+KNN_K, KNN_WINDOW, KNN_SAMPLE = 32, 5, 256
+PV_ROW_ATOL, PV_ROW_SHARE = 1e-5, 0.999
+
+
+def _launcher_modules(out: str) -> dict:
+    line = [ln for ln in out.splitlines() if ln.startswith("launcher modules: ")]
+    check(len(line) == 1, "the launcher printed its module check")
+    return json.loads(line[0][len("launcher modules: "):])
+
+
+def knn_checks(dev, eng) -> dict:
+    """``grid.knn_query`` over the stress battle's final positions on the
+    card against the same call on a CPU copy (idx equal, dist within 1e-5
+    relative), the brute-force check of ``tests/test_grid.py`` on a sample
+    of rows, its time; and ``preferred_velocity``'s fallback branch (arena
+    gathers, per-pair cohesion) on the card against its CPU result."""
+    from permafrost_engine_tpu_torch.core.config import SPATIAL_CELL_SIZE
+    from permafrost_engine_tpu_torch.ops import boids, grid
+
+    cfg = eng.cfg
+    e = eng.state.ents
+    pos, alive = e.pos.contiguous(), e.alive & (e.hp > 0)
+    n = pos.shape[0]
+    slots = torch.arange(n, dtype=torch.int32, device=dev)
+
+    # the brute force holds where no bucket overflows: a cap of at least
+    # tests/test_grid.py's 64 and the fullest cell's count
+    r, c = grid.cell_coords(pos, cfg.grid_cells_r, cfg.grid_cells_c)
+    fullest = int(torch.bincount((r * cfg.grid_cells_c + c)[alive]).max())
+    cap = max(64, 1 << (fullest - 1).bit_length())
+
+    def knn(p, a, s):
+        g = grid.build_grid(p, a, cells_r=cfg.grid_cells_r,
+                            cells_c=cfg.grid_cells_c, cap=cap)
+        return grid.knn_query(g, p, p, s, k=KNN_K, window=KNN_WINDOW)
+
+    got = knn(pos, alive, slots)
+    want = knn(pos.cpu(), alive.cpu(), slots.cpu())
+    idx, dist, valid, npos = (t.cpu() for t in got)
+    check(torch.equal(idx, want[0]) and torch.equal(valid, want[2]),
+          "knn_query idx and valid on the card equal the CPU's")
+    fin = torch.isfinite(want[1])
+    rel = ((dist[fin] - want[1][fin]).abs()
+           / want[1][fin].abs().clamp(min=1e-30)).max().item() if fin.any() else 0.0
+    check(rel <= 1e-5 and torch.equal(torch.isfinite(dist), fin),
+          f"knn_query dist within 1e-5 relative of the CPU's: {rel}")
+    # tests/test_grid.py's brute force: within the window's guaranteed
+    # radius the k nearest distances, and every returned slot alive, not self
+    p_np, a_np = pos.cpu().numpy(), alive.cpu().numpy()
+    rows = np.nonzero(a_np)[0]
+    rows = rows[np.linspace(0, len(rows) - 1, KNN_SAMPLE).astype(int)]
+    guaranteed = (KNN_WINDOW // 2) * SPATIAL_CELL_SIZE
+    for q in rows:
+        d = np.linalg.norm(p_np - p_np[q], axis=1)
+        d[~a_np] = np.inf
+        d[q] = np.inf
+        close = np.sort(d[d < guaranteed])[:KNN_K]
+        g = dist[q][valid[q]].numpy()
+        g = g[g < guaranteed]
+        check(len(g) == len(close) and np.allclose(np.sort(g), close, rtol=1e-5),
+              f"knn_query row {q} equals the brute force")
+        check(all(j != q and a_np[j] for j in idx[q][valid[q]].tolist()),
+              f"knn_query row {q} returns living others only")
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        knn(pos, alive, slots)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    # preferred_velocity with neigh_* and the centroid left to its fallbacks
+    mst = e.max_speed / float(cfg.move_hz)
+    args = (pos, e.vel, e.flock, e.dest, torch.zeros_like(pos),
+            torch.ones_like(alive), mst, got[0], got[2], alive)
+    pv = boids.preferred_velocity(*args)
+    pv_cpu = boids.preferred_velocity(*[a.cpu() for a in args])
+    err = (pv.cpu() - pv_cpu).abs().amax(1)
+    share = float((err <= PV_ROW_ATOL).float().mean())
+    check(bool(torch.isfinite(pv).all()) and share >= PV_ROW_SHARE,
+          f"preferred_velocity's fallbacks on the card agree with the CPU: "
+          f"{share} of rows within {PV_ROW_ATOL}")
+    return dict(rows=n, cap=cap, fullest=fullest, valid=int(valid.sum()),
+                dist_rel_err=rel,
+                brute_rows=len(rows), ms_median=float(np.median(times)),
+                ms=times, pv_rows_within=share,
+                pv_max_abs_err=float(err.max()),
+                pv_rows_beyond=int((err > PV_ROW_ATOL).sum()))
+
+
+def _live_viewer_check(dev) -> dict:
+    """The live viewer's scenario on the card behind its HTTP handler on
+    127.0.0.1: a click selects a unit of side 0 and a right click orders
+    it; then the frame route (PNG when Pillow is there, else the rendered
+    u8 frame)."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from permafrost_engine_tpu_torch.core.config import MoveState
+    from permafrost_engine_tpu_torch.script import pf
+    from permafrost_engine_tpu_torch.tools import live_viewer
+
+    eng, cam, side0 = live_viewer.default_scenario(64)
+    check(eng.device.type == "cuda", "the live viewer runs on the card")
+    live = live_viewer.LiveServer(eng, cam)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), live_viewer.make_handler(live))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    vw, vh = pf.context().ui.virtual_resolution
+    target = eng.pos_of(side0[3])
+
+    def at(x, z):
+        s = cam.world_to_screen((float(x), 0.0, float(z)), vw, vh)
+        return dict(x=s[0] / vw, y=s[1] / vh)
+
+    try:
+        for msg in (dict(type="click", button=1, **at(*target)),
+                    dict(type="click", button=3, **at(target[0] + 40.0,
+                                                      target[1]))):
+            req = urllib.request.Request(url + "/input", method="POST",
+                                         data=json.dumps(msg).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                check(r.status == 204, f"POST /input answered {r.status}")
+        selected = [x.uid for x in pf.get_unit_selection()]
+        ms = eng.ents_host("movestate")["movestate"]
+        moving = [u for u in selected
+                  if ms[eng.uid_to_slot[u]] == int(MoveState.MOVING)]
+        check(len(selected) >= 1 and moving == selected,
+              f"the click was consumed as an order: selected {selected}, "
+              f"moving {moving}")
+        if _pillow():
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(url + "/frame.png", timeout=300) as r:
+                png = r.read()
+            frame_s = time.perf_counter() - t0
+            check(png[:8] == b"\x89PNG\r\n\x1a\n", "GET /frame.png is a PNG")
+            frame = dict(route="GET /frame.png", bytes=len(png))
+        else:
+            t0 = time.perf_counter()
+            img = live.render_frame()
+            frame_s = time.perf_counter() - t0
+            check(img.shape == (384, 640, 3) and img.dtype == np.uint8,
+                  "the frame route's u8 frame")
+            frame = dict(route="render_frame (no Pillow)", shape=img.shape)
+    finally:
+        live.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        pf._context = None
+    return dict(selected=selected, moving=moving, frame_s=frame_s, **frame)
+
+
+def _pillow() -> bool:
+    try:
+        importlib.metadata.version("pillow")
+    except importlib.metadata.PackageNotFoundError:
+        return False
+    return True
+
+
+@contextlib.contextmanager
+def _quiet(name: str):
+    """Send an entry point's own printing (per-second reports, the viewer's
+    terminal frames) to ``chiprun_out/phase11_<name>.log``."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"phase11_{name}.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        yield
+
+
+def phase_entry(dev):
+    """Phase 11 (see the module docstring): the port's entry points on the
+    card, the stress battle uncut as their main path; what they print goes
+    to ``chiprun_out/phase11_*.log``."""
+    import tempfile
+
+    from permafrost_engine_tpu_torch.demos import (campaign, editor, pong,
+                                                   rts_demo, stress, viewer)
+    from permafrost_engine_tpu_torch.render.draw import minimap_raster
+    from permafrost_engine_tpu_torch.script import pf
+    from permafrost_engine_tpu_torch.tools import export_replay
+
+    t_phase = time.perf_counter()
+    pillow = _pillow()
+    log(f"phase 11 pillow={'present' if pillow else 'absent'}"
+        + ("" if pillow else ": the frame route and the replay are driven up "
+           "to the rendered u8 frame, which Pillow would encode"))
+    torch.cuda.synchronize()
+    reset_counts()
+    # -- demos/stress.py --units 5000, its main loop of 20 seconds ---------
+    t0 = time.perf_counter()
+    eng = stress.build(ENTRY_UNITS)
+    check(eng.device.type == "cuda", "the stress battle runs on the card")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with _quiet("stress"):
+        first_s, rows = stress.run(eng, ENTRY_SECONDS)
+    counts = read_counts()
+    h = eng.ents_host("pos", "hp", "alive")
+    living = int((h["alive"] & (h["hp"] > 0)).sum())
+    deaths = rows[-1]["deaths"]
+    check(counts["k1"] > 0 and counts["k2_chunk"] > 0 and counts["k2_map"] > 0,
+          f"K1 and K2 (chunks and whole maps) launched in the battle: {counts}")
+    check(bool(np.isfinite(h["pos"]).all() and np.isfinite(h["hp"]).all()),
+          "no NaN in position or hp")
+    check(living + deaths == 2 * ENTRY_UNITS,
+          f"living {living} + deaths {deaths} == {2 * ENTRY_UNITS}")
+    graphs = graph_summary(eng)
+    log(f"phase 11 stress battle: demos/stress.py --units {ENTRY_UNITS}, "
+        f"{eng.cfg.max_ents} slots, build_s={build_s:.3f} capture+first "
+        f"second {first_s:.3f} s, then fps per simulated second: "
+        + " ".join(f"{r['fps']:.1f}" for r in rows)
+        + f"; alive={rows[-1]['alive']} living={living} deaths={deaths} "
+        f"launches={counts} graphs: captures={graphs.get('captures', 0)} "
+        f"capture_ms={graphs.get('capture_ms', 0.0):.1f}")
+    knn = knn_checks(dev, eng)
+    log(f"phase 11 knn_query: {knn['rows']} positions, k={KNN_K}, window="
+        f"{KNN_WINDOW}, cap={knn['cap']} (fullest cell {knn['fullest']}): idx equal to the CPU's, dist within "
+        f"{knn['dist_rel_err']:.3g} relative, brute force equal on "
+        f"{knn['brute_rows']} rows; ms_median={knn['ms_median']:.4f} "
+        f"(synced, 10 calls); preferred_velocity fallbacks: "
+        f"{knn['pv_rows_within']:.6f} of rows within {PV_ROW_ATOL} of the "
+        f"CPU's ({knn['pv_rows_beyond']} beyond, max {knn['pv_max_abs_err']:.3g})")
+    del eng
+    # -- the demos through their mains ---------------------------------------
+    demo_s = {}
+    with tempfile.TemporaryDirectory(prefix="pf_phase11_") as tmp:
+        t0 = time.perf_counter()
+        with _quiet("rts_demo"):
+            r = rts_demo.main([])
+        check(r["frame"].shape == (384, 640, 3) and r["deaths"] > 0,
+              f"rts_demo: {r['deaths']} deaths, a frame")
+        demo_s["rts_demo"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _quiet("campaign"):
+            camp = campaign.main([])
+        demo_s["campaign"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _quiet("pong"):
+            game = pong.main(600)
+        check(game.paddles != {0: pong.H / 2, 1: pong.H / 2},
+              f"pong's paddle tasks ran: {game.paddles}")
+        demo_s["pong"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _quiet("editor"):
+            ed = editor.main([os.path.join(tmp, "generated.pfmap")])
+        check(ed["reachable"] and ed["device"] == "cuda",
+              "editor: a path across the generated map on the card")
+        demo_s["editor"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _quiet("viewer"):
+            frames = viewer.main(["--units", "64", "--seconds", "3"])
+        check(len(frames) == 3 and frames[-1].shape == (128, 128, 3),
+              "viewer: three minimaps")
+        demo_s["viewer"] = time.perf_counter() - t0
+        pf._context = None
+        # -- the game through the launcher, each in its own interpreter -----
+        launched = {}
+        for script, done in (("scripts/rts/main.py", "RTS GAME COMPLETE"),
+                             ("scripts/editor/main.py", "EDITOR SESSION COMPLETE")):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m",
+                 "permafrost_engine_tpu_torch.tools.launcher", script],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                capture_output=True,
+                text=True, timeout=300)
+            with open(os.path.join(OUT_DIR, "phase11_launcher_"
+                                   + script.split("/")[1] + ".log"), "w") as f:
+                f.write(res.stdout + "\n--- stderr ---\n" + res.stderr)
+            check(res.returncode == 0 and done in res.stdout,
+                  f"launcher {script}: rc {res.returncode}, "
+                  f"{res.stderr[-2000:]}")
+            launched[script] = dict(s=time.perf_counter() - t0,
+                                    modules=_launcher_modules(res.stdout))
+        live = _live_viewer_check(dev)
+        # -- export_replay over 120 frames -----------------------------------
+        t0 = time.perf_counter()
+        reng = export_replay.build(400)
+        t_pos, t_state = export_replay.record(reng, 120)
+        check(t_pos.shape == (20, reng.cfg.max_ents, 2)
+              and t_state[-1, :, 2].sum() > 0, "export_replay recorded 20 frames")
+        if pillow:
+            html = export_replay.build_html(reng, t_pos, t_state, fps=10.0)
+            check("data:image/png;base64," in html, "the replay's HTML")
+            replay = dict(html_bytes=len(html))
+        else:
+            mm = minimap_raster(reng, size=512)
+            check(mm.shape == (512, 512, 3), "the replay's minimap backdrop")
+            replay = dict(minimap=mm.shape)
+        demo_s["export_replay"] = time.perf_counter() - t0
+    phase_counts = read_counts()
+    wall_s = time.perf_counter() - t_phase
+    res = dict(stress=dict(build_s=build_s, first_s=first_s, seconds=rows,
+                           living=living, deaths=deaths, counts=counts,
+                           graphs=graphs),
+               knn=knn, demo_s=demo_s, campaign=camp, launched=launched,
+               live=live, replay=replay, pillow=pillow, counts=phase_counts,
+               wall_s=wall_s)
+    log(f"phase 11 demos (s): " + " ".join(f"{k}={v:.1f}"
+                                             for k, v in demo_s.items())
+        + f"; campaign {camp}")
+    log("phase 11 launcher: " + " ".join(
+        f"{k} rc 0 in {v['s']:.1f} s, modules {v['modules']}"
+        for k, v in launched.items()))
+    log(f"phase 11 live viewer: POST /input selected {live['selected']}, "
+        f"ordered {live['moving']}; {live['route']} in {live['frame_s']:.3f} s")
+    log(f"phase 11 launches={phase_counts} (the stress battle's {counts}); "
+        f"wall_s={wall_s:.1f}")
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2562,9 +2898,10 @@ def main() -> int:
     pf_battle = phase_pf(dev)
     render = phase_render(dev)
     parallel = phase_parallel(dev)
+    entry = phase_entry(dev)
 
     wall_s = time.perf_counter() - t_start
-    log(f"phases 0-10 wall_s={wall_s:.1f}")
+    log(f"phases 0-11 wall_s={wall_s:.1f}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(device=smi[0], torch=torch.__version__,
@@ -2572,7 +2909,7 @@ def main() -> int:
                        build_s=builds, k2=k2, k1=k1, slice=sl, war=war,
                        combined=combined, economy=economy,
                        pf_battle=pf_battle, render=render,
-                       parallel=parallel, wall_s=wall_s,
+                       parallel=parallel, entry=entry, wall_s=wall_s,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
     # phase 6's captured K2 calls (formation install, structure relink)
@@ -2590,11 +2927,12 @@ def main() -> int:
                     plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
                     bound_by=b["bound_by"], library_ms=None)
 
-    # phases 4-9 on one engine; phase 10's launches are its ranks' (the
-    # whole-map fields there go through the band integrator, not K2)
+    # phases 4-9 and 11 in this process; phase 10's launches are its ranks'
+    # (the whole-map fields there go through the band integrator, not K2)
     launches = {k: sl["counts"][k] + war["counts"][k] + combined["counts"][k]
                 + economy["counts"][k] + pf_battle["counts"][k]
-                + render["counts"][k] for k in sl["counts"]}
+                + render["counts"][k] + entry["counts"][k]
+                for k in sl["counts"]}
     par, kb = parallel["counts"], parallel["k1_rows"]
     kernels = [
         k2_row("64x64 chunks", "portal_spans",
@@ -2618,6 +2956,8 @@ def main() -> int:
     # no PyTorch call computes either kernel's function, so no library_ms
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "permafrost_engine_tpu"))
+    for v in entry["launched"].values():   # the launcher's interpreters
+        jax_mods += v["modules"]["jax"] + v["modules"]["jax_pkg"]
     check(not jax_mods, f"no JAX module or JAX package imported: {jax_mods[:5]}")
     log(json.dumps({"kernels": kernels}))
     log(smi[0])

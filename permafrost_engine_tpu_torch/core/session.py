@@ -178,7 +178,7 @@ def save_session_bytes(engine, *, script_state=None, extra_tokens=None,
     # boot (plain pickle): just enough to construct the Engine that the
     # graph-pickled part's tokens resolve against
     boot = {
-        "cfg": dataclasses.asdict(engine.cfg),
+        "cfg": dataclass_dict(engine.cfg),
         "nav_terrain_cost": nav.terrain_cost,
         "map_data": engine.map_data,
     }
@@ -188,6 +188,11 @@ def save_session_bytes(engine, *, script_state=None, extra_tokens=None,
     pickle.dump({"version": FORMAT_VERSION, "boot": boot,
                  "state": state_np, "rest": rest}, buf, protocol=4)
     return buf.getvalue()
+
+
+def dataclass_dict(cfg) -> dict:
+    """An ``EngineConfig`` as a plain dict of its fields."""
+    return dataclasses.asdict(cfg)
 
 
 def load_session_bytes(data: bytes, *, device="cuda", extra_resolve=None,

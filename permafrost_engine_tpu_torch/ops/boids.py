@@ -3,10 +3,9 @@
 Port of ``permafrost_engine_tpu/ops/boids.py`` (ref: src/game/movement.c:
 418-437, force builders movement.c:1524-2023): separation, flow/arrive
 seek, alignment over the shared neighbour window, cohesion from per-(flock,
-cell) sums box-filtered over 7x7 cells, and the formation keep force. The
-JAX version's per-pair cohesion (``cohesion_force``) and its arena-gather
-fallbacks serve no caller of the movement substep and are not ported.
-Velocities are per-movement-tick displacements.
+cell) sums box-filtered over 7x7 cells (the movement substep's form) or
+per pair over an explicit neighbour set (``cohesion_force``), and the
+formation keep force. Velocities are per-movement-tick displacements.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from permafrost_engine_tpu_torch.core.config import (
     ARRIVE_SLOWING_RADIUS,
     CELL_ARRIVAL_RADIUS,
     COHESION_FORCE,
+    COHESION_RADIUS,
     FORMATION_COHESION_FORCE,
     FORMATION_DRAG,
     MAX_FORCE,
@@ -45,6 +45,12 @@ def truncate(v: torch.Tensor, max_len) -> torch.Tensor:
     return v * scale
 
 
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-neighbour values x[idx] for idx [N, K]; -1 (invalid) is clamped
+    to row 0 as in JAX, not wrapped to the last row."""
+    return x[torch.clamp(idx, 0, x.shape[0] - 1).long()]
+
+
 def arrive_force(pos, dest, vel, max_speed_tick):
     to_dest = dest - pos
     dist = _norm(to_dest)[..., None]
@@ -65,6 +71,18 @@ def separation_force(pos, neigh_idx, neigh_valid, neigh_pos):
     w = torch.where(in_range, 1.0 / torch.clamp(d * d, min=0.25), 0.0)
     force = (diff * w[..., None]).sum(1)
     return truncate(force, MAX_FORCE) * SEPARATION_FORCE
+
+
+def cohesion_force(pos, flock, neigh_idx, neigh_valid, neigh_pos, neigh_flock):
+    """Steer toward the centroid of same-flock neighbours within radius."""
+    d = _norm(neigh_pos - pos[:, None, :])
+    mate = neigh_valid & (neigh_flock == flock[:, None]) & (flock[:, None] >= 0)
+    in_range = mate & (d < COHESION_RADIUS)
+    cnt = in_range.sum(1)
+    centroid = torch.where(in_range[..., None], neigh_pos, 0.0).sum(1)
+    centroid = centroid / torch.clamp(cnt, min=1)[..., None]
+    force = torch.where((cnt > 0)[..., None], centroid - pos, 0.0)
+    return truncate(force, MAX_FORCE) * COHESION_FORCE
 
 
 def _box_sum(g: torch.Tensor, dim: int, box: int) -> torch.Tensor:
@@ -188,19 +206,31 @@ def formation_keep_force(pos, vel, flock, cell, has_cell, flock_formation,
 
 def preferred_velocity(pos, vel, flock, dest, flow_dir, use_arrive,
                        max_speed_tick, neigh_idx, neigh_valid, moving, *,
-                       neigh_pos, neigh_vel, neigh_flock, coh_centroid,
-                       coh_cnt, keep=None):
+                       neigh_pos=None, neigh_vel=None, neigh_flock=None,
+                       coh_centroid=None, coh_cnt=None, keep=None):
     """Combined steering -> preferred per-tick velocity for the HRVO solve
     (ref: movement.c:3414-3452); zero for entities not moving. Neighbour
-    attributes come from the grid window's payload, cohesion from
-    ``flock_cohesion_centroids`` (the movement substep's only form), and
-    `keep` is the formation keep force (``formation_keep_force``; None
-    without formations)."""
+    positions, velocities and flocks are gathered from the arena by
+    `neigh_idx` where not given (the movement substep passes the grid
+    window's payload). Cohesion comes from ``flock_cohesion_centroids``'
+    `coh_centroid` and `coh_cnt` (the movement substep's form), or per pair
+    (``cohesion_force``) without them. `keep` is the formation keep force
+    (``formation_keep_force``; None without formations)."""
+    if neigh_pos is None:
+        neigh_pos = _gather(pos, neigh_idx)
+    if neigh_vel is None:
+        neigh_vel = _gather(vel, neigh_idx)
+    if neigh_flock is None:
+        neigh_flock = _gather(flock, neigh_idx)
     seek = torch.where(use_arrive[..., None],
                        arrive_force(pos, dest, vel, max_speed_tick),
                        flow_follow_force(flow_dir, vel, max_speed_tick))
     sep = separation_force(pos, neigh_idx, neigh_valid, neigh_pos)
-    coh = cohesion_force_from_centroid(pos, coh_centroid, coh_cnt)
+    if coh_centroid is not None and coh_cnt is not None:
+        coh = cohesion_force_from_centroid(pos, coh_centroid, coh_cnt)
+    else:
+        coh = cohesion_force(pos, flock, neigh_idx, neigh_valid, neigh_pos,
+                             neigh_flock)
     ali = alignment_force(vel, flock, neigh_idx, neigh_valid, neigh_pos,
                           neigh_vel, neigh_flock, pos)
     total = seek + sep + coh + ali

@@ -9,8 +9,9 @@ buckets match the JAX version's exactly. Window queries gather the 3x3
 neighbourhood's bucket rows per query.
 
 ``nearest_match`` is combat's exact nearest-target query. ``build_grid``
-(one grid, slot order within a cell) and ``central_block_cols`` are the
-JAX module's public helpers; ``knn_query`` is not on the ported path.
+(one grid, slot order within a cell), ``central_block_cols`` and
+``knn_query`` (the K nearest indexed entities of a window) are the JAX
+module's public helpers.
 """
 
 from __future__ import annotations
@@ -198,15 +199,47 @@ def window_candidates(grid: SpatialGrid, query_pos, query_slot, *,
                       window: int = 5):
     """All bucket candidates in a (window x window)-cell neighbourhood of
     each query point: (cand i32[Q, W2*cap], cpos f32[Q, W2*cap, 2],
-    cpay f32[Q, W2*cap, P], valid bool[Q, W2*cap]); `valid`
-    excludes empty entries and the queryer itself."""
+    cpay f32[Q, W2*cap, P] or None without a payload, valid
+    bool[Q, W2*cap]); `valid` excludes empty entries and the queryer
+    itself."""
     cr, cc = grid.cells_r, grid.cells_c
     qr, qc = cell_coords(query_pos, cr, cc, grid.cell_size)
     cand = _window_rows(grid.buckets, qr, qc, cr, cc, window, -1)
     cpos = _window_rows(grid.bucket_xy, qr, qc, cr, cc, window, 1e30)
-    cpay = _window_rows(grid.bucket_payload, qr, qc, cr, cc, window, 0.0)
+    cpay = None
+    if grid.bucket_payload is not None:
+        cpay = _window_rows(grid.bucket_payload, qr, qc, cr, cc, window, 0.0)
     valid = (cand >= 0) & (cand != query_slot[:, None])
     return cand, cpos, cpay, valid
+
+
+def knn_query(grid: SpatialGrid, pos, query_pos, query_slot, *, k: int,
+              window: int = 5):
+    """The K nearest indexed entities around each query point, over the
+    (window x window)-cell candidates of ``window_candidates``; `pos` is
+    the f32[N, 2] the grid indexes (unused, as in JAX), `query_slot` i32[Q]
+    each queryer's slot (excluded) or -1 for a point query.
+
+    Returns (idx i32[Q, k] or -1, dist f32[Q, k], valid bool[Q, k],
+    neigh_pos f32[Q, k, 2]) sorted by distance. JAX takes
+    ``approx_max_k(-d2)``, which off the TPU is an exact top-k that breaks
+    ties toward the lower candidate column; a stable ascending sort of
+    `d2` gives the same order, invalid columns (d2 = inf) included, so all
+    four outputs equal JAX's. In an invalid slot `neigh_pos` is whatever
+    the window holds at that column. The squared distance is
+    ``fma(dz, dz, dx * dx)``, the contraction XLA makes on the CPU, and its
+    root is correctly rounded (``ops/rounding.py``)."""
+    cand, cpos, _, cvalid = window_candidates(grid, query_pos, query_slot,
+                                              window=window)
+    dx = cpos[..., 0] - query_pos[:, None, 0]
+    dz = cpos[..., 1] - query_pos[:, None, 1]
+    d2 = torch.where(cvalid, fma(dz, dz, dx * dx), float("inf"))
+    d2, top = torch.sort(d2, dim=1, stable=True)
+    d2, top = d2[:, :k], top[:, :k]
+    valid = torch.isfinite(d2)
+    idx = torch.where(valid, torch.gather(cand, 1, top), -1)
+    neigh_pos = torch.gather(cpos, 1, top[..., None].expand(-1, -1, 2))
+    return idx, sqrt(d2), valid, neigh_pos
 
 
 def contact_candidates(grid: ContactGrid, query_pos, query_slot):

@@ -2,10 +2,11 @@
 
 ``scripts/rts`` imports ``permafrost_engine_tpu.script.pf`` (and the JAX
 package's ``core.config`` and ``assets.pfmap``) and touches the engine
-through nothing else. A fresh interpreter installs a ``sys.meta_path``
-finder that resolves every ``permafrost_engine_tpu.*`` import to the same
-module of ``permafrost_engine_tpu_torch.*``, wraps the port's ``pf.init``
-to pass ``device="cpu"``, runs ``scripts/rts/main.setup()`` and
+through nothing else. A fresh interpreter installs the port launcher's
+``sys.meta_path`` finder (``tools/launcher.py``), which resolves every
+``permafrost_engine_tpu.*`` import to the same module of
+``permafrost_engine_tpu_torch.*``, makes the port's ``pf.init`` default to
+``device="cpu"`` (the launcher's ``--cpu``), runs ``scripts/rts/main.setup()`` and
 ``pf.step(5)`` as ``tests/test_game_scripts.py``'s fixture does, then each
 of that file's tests against the live game, in its order. Each test here
 is one of them, passing when it passed there; one more holds that no
@@ -33,9 +34,6 @@ GAME_TESTS = ["test_scene_loaded", "test_unit_stat_blocks",
               "test_session_dialog_roundtrip"]
 
 _GAME_RUN = r"""
-import importlib
-import importlib.abc
-import importlib.util
 import json
 import pathlib
 import sys
@@ -44,38 +42,15 @@ import traceback
 
 import pytest
 
-_JAX, _PORT = "permafrost_engine_tpu", "permafrost_engine_tpu_torch"
-
-
-class PortFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
-    # permafrost_engine_tpu.X -> the port's permafrost_engine_tpu_torch.X
-    def find_spec(self, name, path=None, target=None):
-        if name == _JAX or name.startswith(_JAX + "."):
-            return importlib.util.spec_from_loader(name, self)
-        return None
-
-    def create_module(self, spec):
-        return importlib.import_module(_PORT + spec.name[len(_JAX):])
-
-    def exec_module(self, module):
-        pass
-
-
-sys.meta_path.insert(0, PortFinder())
 sys.path.insert(0, REPO)
 sys.path.insert(0, REPO + "/tests")
 
+from permafrost_engine_tpu_torch.tools import launcher
+
+launcher.install_finder()
+launcher.use_cpu()
+
 from permafrost_engine_tpu_torch.script import pf
-
-_init = pf.init
-
-
-def init(cfg=None, **kw):
-    kw.setdefault("device", "cpu")
-    return _init(cfg, **kw)
-
-
-pf.init = init
 
 import test_game_scripts as T
 from scripts.rts import main as game_main
@@ -95,14 +70,9 @@ for name in NAMES:
         results[name] = "passed"
     except (Exception, pytest.fail.Exception):
         results[name] = traceback.format_exc()
-jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "jaxlib", "flax"))
 # every permafrost_engine_tpu.* entry must be the port's module
-jax_pkg = sorted(m for m, mod in sys.modules.items()
-                 if m.split(".")[0] == _JAX and mod is not None
-                 and not mod.__name__.startswith(_PORT))
-print("RESULTS " + json.dumps(dict(results=results, jax=jax_mods,
-                                   jax_pkg=jax_pkg)))
+print("RESULTS " + json.dumps(dict(results=results,
+                                   **launcher.jax_modules())))
 """
 
 

@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: a whole game scenario through ``pf``.
 
-``demos/rts_demo.py``'s scenario: two factions at war, a worker economy
+``demos/rts_demo.py``'s scenario (its world from the port's copy of the
+demo, ``permafrost_engine_tpu_torch/demos/rts_demo.py``): two factions at war, a worker economy
 (a harvester gathering Wood into a storage site), six knights in a RANK
 formation against six grunts, two scouts garrisoning a tower, a session
 saved and loaded mid-march and again at the end, and the demo's last call,
@@ -41,6 +42,7 @@ torch.set_num_threads(1)
 import permafrost_engine_tpu.script.pf as jpf
 from permafrost_engine_tpu.core.config import EngineConfig
 from permafrost_engine_tpu_torch.core.config import EngineConfig as TorchConfig
+from permafrost_engine_tpu_torch.demos import rts_demo as rts_demo_port
 from permafrost_engine_tpu_torch.script import pf as tpf
 
 from test_torch_scene import assert_frames_close
@@ -57,59 +59,19 @@ def _init(pf, cfg):
 
 
 def demo_setup(pf, tmp):
-    """demos/rts_demo.py's world: factions, economy, knights, grunts, tower
-    and scouts, up to the knights' move order."""
-    _init(pf, EngineConfig(max_ents=256, chunks_r=2, chunks_c=2,
-                           num_layers=12, max_flocks=16, max_projectiles=64,
-                           field_slab_slots=32, los_slab_slots=32))
-    ctx = pf.context()
-    ctx.basedir = str(tmp)
-    ctx.engine.economy_period = 3
-
-    humans = pf.add_faction("Humans", (0, 0, 255))
-    orcs = pf.add_faction("Orcs", (255, 0, 0), controllable=False)
-    pf.set_diplomacy_state(humans, orcs, pf.DIPLOMACY_STATE_WAR)
-
-    tree = pf.ResourceEntity("tree.pfobj", "tree", pos=(150, 0, 100),
-                             resource_name="Wood", resource_amount=50,
-                             faction_id=humans)
-    hut = pf.StorageSiteEntity("hut.pfobj", "hut", pos=(100, 0, 140),
-                               faction_id=humans)
-    hut.set_capacity("Wood", 200)
-    worker = pf.HarvesterEntity("w.pfobj", "peon", pos=(100, 0, 100),
-                                speed=100.0, faction_id=humans)
-    worker.set_gather_speed("Wood", 4)
-    worker.set_max_carry("Wood", 8)
-    worker.gather(tree)
-
-    class Knight(pf.MovableEntity, pf.CombatableEntity):
-        """Unit classes compose mixins, like the reference's script classes."""
-
-    knights = [Knight("k.pfobj", f"knight{i}", pos=(80 + 6 * i, 0, 200),
-                      speed=60.0, faction_id=humans, base_dmg=20.0, hp=150.0)
-               for i in range(6)]
-    grunts = [pf.CombatableEntity("g.pfobj", f"grunt{i}",
-                                  pos=(300 + 6 * i, 0, 300),
-                                  faction_id=orcs, hp=80.0, base_dmg=5.0)
-              for i in range(6)]
-
+    """The port's ``demos/rts_demo.py`` world (``rts_demo.setup``, which
+    takes either ``pf``) on an engine with the demo's config, up to the
+    knights' move order, with a handler that records each death's frame."""
+    _init(pf, EngineConfig(**rts_demo_port.CONFIG))
+    pf.context().basedir = str(tmp)
+    w = rts_demo_port.setup(pf)
     deaths = []
 
     def on_death(ev):
         deaths.append((pf.context().engine._frame, ev["uid"]))
 
     pf.register_event_handler(pf.EVENT_ENTITY_DEATH, on_death)
-
-    tower = pf.GarrisonableEntity("t.pfobj", "tower", pos=(260, 0, 200),
-                                  faction_id=humans, garrison_capacity=4)
-    scouts = [pf.GarrisonEntity("s.pfobj", f"scout{i}",
-                                pos=(60 + 6 * i, 0, 240), speed=80.0,
-                                faction_id=humans)
-              for i in range(2)]
-    for s in scouts:
-        s.garrison(tower)
-    return dict(humans=humans, worker=worker, knights=knights, grunts=grunts,
-                tower=tower, scouts=scouts, deaths=deaths, on_death=on_death)
+    return dict(w, deaths=deaths, on_death=on_death)
 
 
 def rts_demo(pf, tmp) -> dict:
