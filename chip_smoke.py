@@ -26,8 +26,9 @@ package beside it. Phases, each printing its own line:
    bound at the shares of (candidate, cone) pairs these inputs take past
    the sign test (the sqrt share) and inside;
 4. the march: two 5,000-unit armies spawned and ordered across the
-   battle map (as ``bench.py``'s ``build_battle(5000, terrain=True)``,
-   with no war), 360 frames stepped; both kernels' launch counters (reset
+   battle map (``bench.py``'s ``build_battle(5000, terrain=True)``, through
+   the port bench's ``battle_engine``, ``spawn_armies`` and
+   ``order_armies``, with no war), 360 frames stepped; both kernels' launch counters (reset
    just before) must be above 0, K1's equal to the movement substeps, no
    NaN, and both armies closer to their goals; ms per frame and per
    substep;
@@ -52,8 +53,9 @@ package beside it. Phases, each printing its own line:
    count), the nav cadence's counters and peak memory;
 6. the combined-arms battle (BASELINE #5: ``bench.py``'s
    ``build_battle(5000, terrain=True, full=True)``, 32-joint skinning
-   included, driven as its ``run_battle`` drives it, with
-   ``place_midfight_structures``): per side a 4,360-unit ground corps
+   included, built by the port bench's own steps with its formation
+   orders instrumented, driven as its ``run_battle`` drives it and with its
+   frame counts, with its ``place_midfight_structures``): per side a 4,360-unit ground corps
    (3,200 melee, 1,000 archers, 160 radius-2.5 siege) in one
    ``move_in_formation(RANK)``, 384 navy on the water layer and 256 air, at
    war from the start. Micro-batched ``step``: a warm-up second and three
@@ -202,6 +204,25 @@ package beside it. Phases, each printing its own line:
    ``export_replay`` over 120 frames. Where Pillow is absent (printed),
    the frame route and the replay stop at the rendered u8 frame.
 
+12. the port's bench (``phase_bench``, ``permafrost_engine_tpu_torch/
+   bench.py``, as ``python -m permafrost_engine_tpu_torch.bench`` runs it):
+   ``bench.main([])`` in this process, its output captured (and written to
+   ``chiprun_out/phase12_bench.log``): the sync round trip, the flow-field
+   rebuild (21 single chunks, a 64-chunk batch), the 1280x720 render cell,
+   the combined-arms battle on the obstacle map (``run_battle(terrain=True,
+   full=True)``: march, contact and late phases, ``profile_tick`` twice)
+   and the flat battle, each uncut. Fails unless the last line parses, is
+   under 2,048 characters and holds every key of ``bench.py``'s line (the
+   rtt keys renamed ``sync_rtt_floor_ms_*``), the ``bench detail:`` line
+   parses, every fps is finite and above 0, ``value`` is the obstacle
+   battle's ``fps_min`` and each ``fps_min`` the least of its march,
+   contact and late phases, K1, K2 for chunks and K2 for whole maps
+   launched inside the bench, K2 on the rebuild's 64-chunk batch is
+   bit-equal to its plain version, both battles produce deaths and end with
+   no NaN position, and the obstacle battle's digest after its march equals
+   phase 6's (the same spawn code, warm-up and three 120-frame ``step``
+   windows, run twice: a reproducibility check). Prints the bench's lines, the checks and the wall seconds.
+
 The script imports only the port and fails if any ``jax``/``jaxlib``/
 ``flax`` module or anything of the JAX package (``permafrost_engine_tpu``)
 was loaded, in this process or in the launcher's. Before the last line come one JSON object with per-kernel
@@ -235,12 +256,6 @@ CONTACT_FRAMES = 120
 SUBSTEP_FRAMES = 60
 WAR_WINDOW = 60             # frames per step() call in phase 5
 SCAN_WINDOW = 120           # frames per step_scan() call at contact
-# phase 6, as bench.py's run_battle: a warm-up second, then timed windows of
-# step() calls; step_scan() chunks fast-forward to first blood
-BENCH_WARMUP = 60
-BENCH_WINDOW = 120
-BENCH_WINDOWS = 3
-FF_CHUNK = 300
 # the card's peak rates for a kernel's least time (NVIDIA's H100 SXM data
 # sheet): device memory bytes/s, and f32 operations/s outside the tensor
 # cores for operations that are not FMAs (adds, multiplies, mins, compares):
@@ -290,49 +305,25 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
                                        else "operations")
 
 
-def block(rng, x0, z0, n, files, dx=4.0, dz=3.0):
-    """bench.py's spawn block: `files` columns dx apart, rows dz apart,
-    each position jittered by up to half a unit from `rng`."""
-    fx = (np.arange(n) % files) * dx
-    fz = (np.arange(n) // files) * dz
-    x = x0 + fx + (rng.random(n) - 0.5)
-    z = z0 + fz + (rng.random(n) - 0.5)
-    return np.stack([x, z], 1).astype(np.float32)
-
-
 def spawn_blocks():
     """The two armies' spawn positions and ranged mask (rng seed 0), as
-    bench.py's build_battle(5000, terrain=True) spawns them."""
-    rng = np.random.default_rng(0)
-    ranged = rng.random(N_PER_SIDE) < 0.2
-    return (block(rng, 200.0, 212.0, N_PER_SIDE, 25),
-            block(rng, 820.0, 212.0, N_PER_SIDE, 25), ranged)
+    bench.py's build_battle(5000, terrain=True) draws them."""
+    from permafrost_engine_tpu_torch import bench
+
+    return bench.plain_blocks(N_PER_SIDE, np.random.default_rng(0))
 
 
 def build_battle(dev, war: bool = False):
-    """bench.py's build_battle(5000, terrain=True): the 4x4-chunk battle
-    map, two factions (at war if `war`), two 5,000-unit blocks (rng seed 0,
-    20% ranged) ordered to the far side."""
-    from permafrost_engine_tpu_torch import DiplomacyState, EngineConfig
-    from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
-    from permafrost_engine_tpu_torch.game.engine import Engine
+    """bench.py's build_battle(5000, terrain=True), through the port's
+    bench: the 4x4-chunk battle map, two factions (at war if `war`), two
+    5,000-unit blocks (rng seed 0, 20% ranged) ordered to the far side."""
+    from permafrost_engine_tpu_torch import bench
 
-    cfg = EngineConfig(max_ents=2 * N_PER_SIDE + 256)
-    eng = Engine(cfg, device=dev)
-    eng.load_map_data(make_battle_map())
-    eng.add_faction(0)
-    eng.add_faction(1)
-    if war:
-        eng.set_diplomacy(0, 1, DiplomacyState.WAR)
-    pos_a, pos_b, ranged = spawn_blocks()
-    kw = dict(max_speed=20.0, is_ranged=ranged,
-              attack_range=np.where(ranged, 40.0, 5.0), vision_range=80.0,
-              hp=200.0)
-    a = eng.spawn_batch(pos_a, faction=0, **kw)
-    b = eng.spawn_batch(pos_b, faction=1, **kw)
-    goals = {"a": (820.0, 512.0), "b": (200.0, 512.0)}
-    check(eng.move(a, goals["a"]), "army a path request")
-    check(eng.move(b, goals["b"]), "army b path request")
+    eng = bench.battle_engine(N_PER_SIDE, terrain=True, full=False,
+                              device=dev, war=war)
+    a, b = bench.spawn_armies(eng, N_PER_SIDE, full=False)
+    check(bench.order_armies(eng, a, b, full=False), "the armies' path requests")
+    goals = {"a": bench.GOALS[0], "b": bench.GOALS[1]}
     return eng, a, b, goals
 
 
@@ -954,53 +945,6 @@ class K2Capture:
         return dict(k=k, h=h, w=w, max_abs_err=err)
 
 
-def spawn_combined(eng):
-    """bench.py's build_battle(5000, terrain=True, full=True) spawns (rng
-    seed 0), per side: a ground corps of 3,200 melee, 1,000 archers and
-    160 radius-2.5 siege (the 3x3-footprint layer), 384 navy on the water
-    layer and 256 air."""
-    from permafrost_engine_tpu_torch.core.config import NavDomain
-
-    rng = np.random.default_rng(0)
-    n_melee = int(N_PER_SIDE * 0.64)
-    n_arch = int(N_PER_SIDE * 0.20)
-    n_siege = int(N_PER_SIDE * 0.032)
-    n_navy = int(N_PER_SIDE * 0.0768)
-    n_air = N_PER_SIDE - n_melee - n_arch - n_siege - n_navy
-
-    def side(f, x_inf, x_siege, x_air, navy_z0):
-        archer = np.arange(n_melee + n_arch) >= n_melee
-        inf = eng.spawn_batch(
-            block(rng, x_inf, 212.0, n_melee + n_arch, 25), faction=f,
-            max_speed=20.0, is_ranged=archer,
-            attack_range=np.where(archer, 40.0, 5.0), vision_range=80.0,
-            hp=200.0)
-        siege = eng.spawn_batch(
-            block(rng, x_siege, 380.0, n_siege, 8, dx=7.0, dz=7.0), faction=f,
-            radius=2.5, max_speed=10.0, is_ranged=True, attack_range=50.0,
-            base_dmg=30.0, vision_range=90.0, hp=400.0)
-        navy = eng.spawn_batch(
-            block(rng, 452.0, navy_z0, n_navy, 8), faction=f,
-            domain=NavDomain.WATER, radius=1.5, max_speed=24.0,
-            is_ranged=True, attack_range=45.0, base_dmg=15.0,
-            vision_range=90.0, hp=300.0)
-        air = eng.spawn_batch(
-            block(rng, x_air, 420.0, n_air, 16), faction=f,
-            domain=NavDomain.AIR, radius=1.2, max_speed=32.0, is_ranged=True,
-            attack_range=30.0, vision_range=100.0, hp=150.0)
-        return dict(inf=inf, siege=siege, navy=navy, air=air)
-
-    return (side(0, x_inf=200.0, x_siege=160.0, x_air=120.0, navy_z0=400.0),
-            side(1, x_inf=820.0, x_siege=930.0, x_air=880.0, navy_z0=560.0))
-
-
-# bench.py's place_midfight_structures: six radius-10 buildings at the chokes
-STRUCTURE_SPOTS = np.array([[356.0, 280.0], [356.0, 744.0], [470.0, 330.0],
-                            [470.0, 700.0], [590.0, 512.0], [420.0, 512.0]],
-                           np.float32)
-STRUCTURE_RADIUS = 10.0
-
-
 def check_formation(eng, corps: list[int]) -> dict:
     """Every unit of a corps holds a cell; per (layer, unit type) block the
     cells are distinct and lie on passable tiles of the layer; the corps'
@@ -1088,9 +1032,9 @@ def palette_digest(eng) -> str:
     return hashlib.sha256(data).hexdigest()[:16]
 
 
-def fps(windows: list[float]) -> float:
+def fps(windows: list[float], frames: int) -> float:
     """bench.py's measure_phase: the median of the windows' frame rates."""
-    return float(np.median([BENCH_WINDOW / w for w in windows]))
+    return float(np.median([frames / w for w in windows]))
 
 
 def phase_combined(dev):
@@ -1098,12 +1042,8 @@ def phase_combined(dev):
     terrain=True, full=True) with skin_joints=32, driven as run_battle
     drives it, with place_midfight_structures) through the port's Engine:
     see the module docstring."""
-    from permafrost_engine_tpu_torch import DiplomacyState, EngineConfig, FRAME_HZ
-    from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
-    from permafrost_engine_tpu_torch.core.config import EntityFlags
+    from permafrost_engine_tpu_torch import FRAME_HZ, bench
     from permafrost_engine_tpu_torch.game import engine as engine_mod
-    from permafrost_engine_tpu_torch.game.engine import Engine
-    from permafrost_engine_tpu_torch.game.formation import FormationType
     from permafrost_engine_tpu_torch.nav import portals, service
     from permafrost_engine_tpu_torch.ops import flowfield_cuda
     from permafrost_engine_tpu_torch.ops.skin import (
@@ -1114,14 +1054,12 @@ def phase_combined(dev):
     reset_counts()
     cap = K2Capture()
     t0 = time.perf_counter()
-    cfg = EngineConfig(max_ents=2 * N_PER_SIDE + 256, skin_joints=32)  # bench.py:63
-    eng = Engine(cfg, device=dev)
+    # bench.build_battle(5000, terrain=True, full=True) in its three steps,
+    # the orders instrumented
+    eng = bench.battle_engine(N_PER_SIDE, terrain=True, full=True, device=dev)
+    cfg = eng.cfg
     check(eng.micro_batching, "phase 6 steps micro-batched")
-    eng.load_map_data(make_battle_map())
-    eng.add_faction(0)
-    eng.add_faction(1)
-    eng.set_diplomacy(0, 1, DiplomacyState.WAR)
-    a, b = spawn_combined(eng)
+    a, b = bench.spawn_armies(eng, N_PER_SIDE, full=True)
     n0 = int(eng.state.ents.alive.sum())
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1145,50 +1083,58 @@ def phase_combined(dev):
                  (eng, "_commit_nav", timed_commit)):
         # -- the orders: two formation moves, navies and air squadrons -------
         orders = []
-        for side, goal in ((a, (820.0, 512.0)), (b, (200.0, 512.0))):
-            times, blocks = {}, []
 
-            def auction(fn, _blocks=blocks):
-                def run(units, cells, *, device, stats=None):
-                    st = {}
-                    t = time.perf_counter()
-                    out = fn(units, cells, device=device, stats=st)
-                    _blocks.append(dict(bidders=len(units), cells=len(cells),
-                                        rounds=st["rounds"],
-                                        greedy=st["greedy"],
-                                        s=time.perf_counter() - t))
-                    return out
-                return run
+        def timed_order(fn):
+            """Each formation order timed by stage, its auction blocks and
+            K2 launches recorded, its cells checked; the first order's
+            install K2 call captured."""
+            def run(units, *args, **kw):
+                times, blocks = {}, []
 
-            install = synced(times, "install", eng.nav.install_formation_field)
-            if not orders:
-                install = cap.arm("formation install", install)
-            k2 = flowfield_cuda.launches_chunk
-            with patched((engine_mod, "layout_cells",
-                          lambda fn: synced(times, "layout", fn)),
-                         (engine_mod, "assign_cells",
-                          lambda fn: synced(times, "auction", auction(fn))),
-                         (eng.nav, "install_formation_field",
-                          lambda fn, _i=install: _i)):
-                ok = synced(times, "total", eng.move_in_formation)(
-                    side["inf"] + side["siege"], goal, FormationType.RANK)
-            check(ok, "formation order laid cells")
-            k2_order = flowfield_cuda.launches_chunk - k2
-            check(k2_order > 0, f"K2 launched for chunks during the "
-                  f"formation order ({k2_order})")
-            blocks_n = check_formation(eng, side["inf"] + side["siege"])
-            orders.append(dict(s=times, blocks=blocks, k2_chunk=k2_order,
-                               cells_per_block=blocks_n))
-        check(eng.move(a["navy"], (468.0, 620.0)), "navy a order")
-        check(eng.move(b["navy"], (468.0, 404.0)), "navy b order")
-        check(eng.move(a["air"], (900.0, 512.0)), "air a order")
-        check(eng.move(b["air"], (140.0, 512.0)), "air b order")
+                def auction(fn):
+                    def run(units, cells, *, device, stats=None):
+                        st = {}
+                        t = time.perf_counter()
+                        out = fn(units, cells, device=device, stats=st)
+                        blocks.append(dict(bidders=len(units), cells=len(cells),
+                                           rounds=st["rounds"],
+                                           greedy=st["greedy"],
+                                           s=time.perf_counter() - t))
+                        return out
+                    return run
+
+                install = synced(times, "install",
+                                 eng.nav.install_formation_field)
+                if not orders:
+                    install = cap.arm("formation install", install)
+                k2 = flowfield_cuda.launches_chunk
+                with patched((engine_mod, "layout_cells",
+                              lambda fn: synced(times, "layout", fn)),
+                             (engine_mod, "assign_cells",
+                              lambda fn: synced(times, "auction", auction(fn))),
+                             (eng.nav, "install_formation_field",
+                              lambda fn: install)):
+                    ok = synced(times, "total", fn)(units, *args, **kw)
+                check(ok, "formation order laid cells")
+                k2_order = flowfield_cuda.launches_chunk - k2
+                check(k2_order > 0, f"K2 launched for chunks during the "
+                      f"formation order ({k2_order})")
+                blocks_n = check_formation(eng, units)
+                orders.append(dict(s=times, blocks=blocks, k2_chunk=k2_order,
+                                   cells_per_block=blocks_n))
+                return ok
+            return run
+
+        with patched((eng, "move_in_formation", timed_order)):
+            check(bench.order_armies(eng, a, b, full=True),
+                  "the engine took every order (corps, navies, air)")
+        check(len(orders) == 2, f"two formation orders ({len(orders)})")
         formation_k2 = cap.check("formation install")
 
         # -- the march: a warm-up second, then timed step() windows ----------
-        warmup_s = synced_call(eng.step, BENCH_WARMUP)
-        march = [synced_call(eng.step, BENCH_WINDOW)
-                 for _ in range(BENCH_WINDOWS)]
+        warmup_s = synced_call(eng.step, bench.WARMUP_FRAMES)
+        march = [synced_call(eng.step, bench.PHASE_FRAMES)
+                 for _ in range(bench.PHASE_WINDOWS)]
         clips_march = clip_counts(eng)
         check(clips_march[CLIP_RUN] > 0, f"RUN clips on the march: {clips_march}")
         keep_evals = check_keep_force_repeats(eng)
@@ -1200,7 +1146,7 @@ def phase_combined(dev):
         while True:
             check(eng._frame < march_frame + WAR_MAX_FRAMES,
                   f"no corpse removed within {WAR_MAX_FRAMES} scan frames")
-            ff.append(synced_call(eng.step_scan, FF_CHUNK))
+            ff.append(synced_call(eng.step_scan, bench.FF_CHUNK))
             if int(eng.state.ents.alive.sum()) < n0:
                 break
         first_blood = eng._frame
@@ -1230,22 +1176,19 @@ def phase_combined(dev):
                                                   dim=1).mean())
 
         d0 = surround_dist()
-        ff.append(synced_call(eng.step_scan, FF_CHUNK))
+        ff.append(synced_call(eng.step_scan, bench.FF_CHUNK))
 
         # -- the buildings drop at the chokes (place_midfight_structures) ----
-        sid = eng.spawn_batch(
-            STRUCTURE_SPOTS, faction=0, radius=STRUCTURE_RADIUS,
-            flags=int(EntityFlags.COLLISION | EntityFlags.BUILDING),
-            max_speed=0.0, hp=1000.0)
-        for u in sid:
-            eng.set_structure_blocking(u, True)
-        rects = [eng._structures[u] for u in sid]
+        before = set(eng._structures)
+        bench.place_midfight_structures(eng)
+        rects = [r for u, r in eng._structures.items() if u not in before]
+        check(len(rects) == 6, f"six structures block the map ({len(rects)})")
         ver, rebuilt = eng._nav_version, eng.nav.stats["chunks_rebuilt"]
 
         # -- contact: step() windows, then step_scan() windows ---------------
         contact, clips_contact = [], []
-        for _ in range(BENCH_WINDOWS):
-            contact.append(synced_call(eng.step, BENCH_WINDOW))
+        for _ in range(bench.PHASE_WINDOWS):
+            contact.append(synced_call(eng.step, bench.PHASE_FRAMES))
             clips_contact.append(clip_counts(eng))
         check(eng._nav_version > ver and commits,
               f"the structure commit bumped _nav_version ({len(commits)})")
@@ -1256,8 +1199,8 @@ def phase_combined(dev):
         check_structures(eng, rects)
         relink_k2 = cap.check("structure relink")
         contact_scan = []
-        for _ in range(BENCH_WINDOWS):
-            contact_scan.append(synced_call(eng.step_scan, BENCH_WINDOW))
+        for _ in range(bench.PHASE_WINDOWS):
+            contact_scan.append(synced_call(eng.step_scan, bench.PHASE_FRAMES))
             clips_contact.append(clip_counts(eng))
         d1 = surround_dist()
     counts = read_counts()
@@ -1291,8 +1234,9 @@ def phase_combined(dev):
         chunks_rebuilt=eng.nav.stats["chunks_rebuilt"],
         invalidations=eng.nav.stats["invalidations"],
         warmup_s=warmup_s, march_s=march, ff_s=ff, contact_s=contact,
-        contact_scan_s=contact_scan, fps_march=fps(march),
-        fps_contact=fps(contact), fps_contact_scan=fps(contact_scan),
+        contact_scan_s=contact_scan, fps_march=fps(march, bench.PHASE_FRAMES),
+        fps_contact=fps(contact, bench.PHASE_FRAMES),
+        fps_contact_scan=fps(contact_scan, bench.PHASE_FRAMES),
         first_blood_frame=first_blood, frames=eng._frame,
         seek_order_ms=seek_ms, surround_order_ms=surround_ms,
         seek_fid=seek_fid, surround_fid=sur_fid,
@@ -1324,11 +1268,12 @@ def phase_combined(dev):
     log(f"phase 6 bench.py's sense: fps_march={res['fps_march']:.2f} "
         f"fps_contact={res['fps_contact']:.2f} "
         f"fps_contact_scan={res['fps_contact_scan']:.2f} (median of "
-        f"{BENCH_WINDOWS} windows of {BENCH_WINDOW} frames; windows s march "
+        f"{bench.PHASE_WINDOWS} windows of {bench.PHASE_FRAMES} frames; "
+        "windows s march "
         + ",".join(f"{x:.3f}" for x in march) + " contact "
         + ",".join(f"{x:.3f}" for x in contact) + " scan "
         + ",".join(f"{x:.3f}" for x in contact_scan)
-        + f"; step_scan({FF_CHUNK}) s " + ",".join(f"{x:.3f}" for x in ff)
+        + f"; step_scan({bench.FF_CHUNK}) s " + ",".join(f"{x:.3f}" for x in ff)
         + f"); seek order {seek_ms:.3f} ms, surround order {surround_ms:.3f} "
         f"ms; launches={counts} (k1 = substeps {substeps}), events={ev}; "
         f"max_memory_allocated={res['max_memory_allocated']}")
@@ -1453,7 +1398,8 @@ def phase_economy(dev, n_per_side: int = ECO_PER_SIDE):
     map, with script tasks, a pause, profiling and a session round trip."""
     import gc
 
-    from permafrost_engine_tpu_torch import DiplomacyState, EngineConfig, FRAME_HZ
+    from permafrost_engine_tpu_torch import (
+        DiplomacyState, EngineConfig, FRAME_HZ, bench)
     from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
     from permafrost_engine_tpu_torch.core.config import SimState
     from permafrost_engine_tpu_torch.core.events import EventType
@@ -1483,7 +1429,8 @@ def phase_economy(dev, n_per_side: int = ECO_PER_SIDE):
     for f, x0 in ((0, 200.0), (1, 820.0)):
         r = ranged[f * n_per_side:(f + 1) * n_per_side]
         armies.append(eng.spawn_batch(
-            block(rng, x0, 212.0, n_per_side, 25), faction=f, is_ranged=r,
+            bench.spawn_block(rng, x0, 212.0, n_per_side, 25), faction=f,
+            is_ranged=r,
             attack_range=np.where(r, 40.0, 5.0), **kw))
     sides = [spawn_economy(eng, 0, 40.0, 1.0), spawn_economy(eng, 1, 1000.0, -1.0)]
     n_ents = int(eng.state.ents.alive.sum())
@@ -2850,6 +2797,162 @@ def phase_entry(dev):
     return res
 
 
+# phase 12: the port's bench (permafrost_engine_tpu_torch/bench.py) through
+# its main, as ``python -m permafrost_engine_tpu_torch.bench`` runs it
+BENCH_LINE_MAX = 2048        # a reader of the output's tail must get the whole line
+BENCH_TOP_KEYS = ("metric", "value", "unit", "vs_baseline",
+                  "flat_map_worst_phase_fps", "sync_rtt_floor_ms_start",
+                  "sync_rtt_floor_ms_end", "obstacle", "flat",
+                  "flow_field_rebuild_ms_p50",
+                  "flow_field_rebuild_ms_per_chunk_batched",
+                  "rebuild_vs_2ms_target", "render")
+BENCH_BATTLE_KEYS = ("fps_min", "fps_march", "fps_contact", "fps_contact_scan",
+                     "fps_late", "alive_after_march", "alive_after_contact",
+                     "overlap_frac_contact", "alive_at_end",
+                     "frames_to_contact", "tick_ms_amortized",
+                     "tick_rerun_spread_pct", "tick_flops_upper",
+                     "tick_hbm_bytes_upper", "mfu_upper_pct")
+BENCH_RENDER_KEYS = ("resolution", "render_ms_p50", "render_fps",
+                     "render_ms_p90", "sim_plus_render_fps_dec4",
+                     "first_frame_compile_s", "scene")
+
+
+def phase_bench(dev, digest_march: str):
+    """Phase 12 (see the module docstring): ``bench.main([])`` in this
+    process, its printed lines checked; `digest_march` is phase 6's."""
+    import gc
+    import io
+
+    from permafrost_engine_tpu_torch import bench
+    from permafrost_engine_tpu_torch.ops import flowfield_cuda
+    from permafrost_engine_tpu_torch.ops.flowfield import integrate_plain
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch, battles = {}, []
+
+    def capture_batch(fn):
+        """Keep the first 64-chunk rebuild's inputs and fields."""
+        def integrate(cost, seed_mask, seed_cost=None, *, max_iters=None):
+            out = fn(cost, seed_mask, seed_cost, max_iters=max_iters)
+            if cost.shape[0] == 64 and not batch:
+                batch.update(cost=cost.clone(), seed=seed_mask.clone(),
+                             out=out.clone())
+            return out
+        return integrate
+
+    def each_build(fn):
+        def run(*args, **kw):
+            battles.append(dict(windows=0))
+            return fn(*args, **kw)
+        return run
+
+    def each_phase(fn):
+        """After a battle's first timed phase (the march) its digest; after
+        every phase whether positions are finite (the last is the end)."""
+        def run(eng, *args, **kw):
+            out = fn(eng, *args, **kw)
+            b = battles[-1]
+            if not b["windows"]:
+                b.update(frame_march=eng._frame, digest_march=state_digest(eng),
+                         skin_joints=eng.cfg.skin_joints)
+            b["windows"] += 1
+            b["finite"] = bool(torch.isfinite(eng.state.ents.pos).all())
+            return out
+        return run
+
+    reset_counts()
+    buf = io.StringIO()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    try:
+        with patched((flowfield_cuda, "integrate", capture_batch),
+                     (bench, "build_battle", each_build),
+                     (bench, "measure_phase", each_phase)), \
+                contextlib.redirect_stdout(buf):
+            ret = bench.main([])
+    finally:
+        with open(os.path.join(OUT_DIR, "phase12_bench.log"), "w") as f:
+            f.write(buf.getvalue())
+    counts = read_counts()
+    lines = buf.getvalue().strip().splitlines()
+    last = lines[-1]
+
+    # -- the printed lines ----------------------------------------------------
+    check(len(last) < BENCH_LINE_MAX,
+          f"the last line is under {BENCH_LINE_MAX} characters ({len(last)})")
+    out = json.loads(last)
+    check(sorted(out) == sorted(BENCH_TOP_KEYS), f"the line's keys: {sorted(out)}")
+    for name in ("obstacle", "flat"):
+        check(sorted(out[name]) == sorted(BENCH_BATTLE_KEYS),
+              f"{name}'s keys: {sorted(out[name])}")
+    check(sorted(out["render"]) == sorted(BENCH_RENDER_KEYS),
+          f"render's keys: {sorted(out['render'])}")
+    detail = [ln for ln in lines if ln.startswith("bench detail: ")]
+    check(len(detail) == 1, "one bench detail line")
+    det = json.loads(detail[0][len("bench detail: "):])
+    check(sorted(det) == ["flat", "obstacle"] and all(
+        sorted(v) == sorted(bench.DETAIL_KEYS) for v in det.values()),
+          "the detail line holds each battle's tick classes and nav stats")
+    fps_vals = {f"{name}.{k}": out[name][k] for name in ("obstacle", "flat")
+                for k in ("fps_min", "fps_march", "fps_contact",
+                          "fps_contact_scan", "fps_late")}
+    fps_vals.update({"value": out["value"],
+                     "render.render_fps": out["render"]["render_fps"],
+                     "render.sim_plus_render_fps_dec4":
+                         out["render"]["sim_plus_render_fps_dec4"]})
+    for k, v in fps_vals.items():
+        check(np.isfinite(v) and v > 0, f"{k} = {v} is finite and above 0")
+    check(out["value"] == round(out["obstacle"]["fps_min"], 2),
+          "value is the obstacle battle's fps_min")
+    for name in ("obstacle", "flat"):
+        b = ret[name]
+        check(round(b["fps_min"], 2) == min(b["fps_march"], b["fps_contact"],
+                                            b["fps_late"]),
+              f"{name}: fps_min is the least of march, contact and late")
+        check(b["alive_at_end"] < 2 * bench.N_PER_SIDE,
+              f"{name}: deaths (alive at the end {b['alive_at_end']})")
+
+    # -- the kernels ran inside the bench -------------------------------------
+    check(counts["k1"] > 0 and counts["k2_chunk"] > 0 and counts["k2_map"] > 0,
+          f"K1, K2 chunks and K2 maps launched inside the bench: {counts}")
+    check(bool(batch), "the 64-chunk rebuild batch was captured")
+    want = integrate_plain(batch["cost"], batch["seed"],
+                           max_iters=4 * batch["cost"].shape[-1])
+    torch.cuda.synchronize()
+    finite = want < 1e30
+    err = float((batch["out"] - want)[finite].abs().max())
+    check(torch.equal(batch["out"], want),
+          f"K2 on the 64-chunk rebuild batch: bit-equal (max err {err})")
+    rebuild_k2 = dict(k=64, h=int(batch["cost"].shape[1]),
+                      w=int(batch["cost"].shape[2]), max_abs_err=err)
+
+    # -- the battles ----------------------------------------------------------
+    check(len(battles) == 2 and all(b["finite"] for b in battles),
+          f"two battles, no NaN position at their ends: {battles}")
+    obstacle = battles[0]
+    check(obstacle["skin_joints"] == 32, "the first battle is the full one")
+    check(obstacle["digest_march"] == digest_march,
+          f"the obstacle battle's march digest {obstacle['digest_march']} "
+          f"(frame {obstacle['frame_march']}) equals phase 6's {digest_march}")
+    wall_s = time.perf_counter() - t_phase
+    res = dict(line=out, line_chars=len(last), detail=det, counts=counts,
+               rebuild_k2=rebuild_k2, battles=battles,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               wall_s=wall_s)
+    log(f"phase 12 bench: {last}")
+    log(f"phase 12 bench checks: last line {len(last)} characters, every key; "
+        f"launches={counts}; K2 bit-equal to plain on the 64-chunk rebuild "
+        f"batch; alive at the end obstacle {out['obstacle']['alive_at_end']} "
+        f"flat {out['flat']['alive_at_end']}; march digest "
+        f"{obstacle['digest_march']} at frame {obstacle['frame_march']} "
+        f"(phase 6 {digest_march}); max_memory_allocated="
+        f"{res['max_memory_allocated']}; wall_s={wall_s:.1f}")
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2899,9 +3002,10 @@ def main() -> int:
     render = phase_render(dev)
     parallel = phase_parallel(dev)
     entry = phase_entry(dev)
+    bench_res = phase_bench(dev, combined["digest_march"])
 
     wall_s = time.perf_counter() - t_start
-    log(f"phases 0-11 wall_s={wall_s:.1f}")
+    log(f"phases 0-12 wall_s={wall_s:.1f}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(device=smi[0], torch=torch.__version__,
@@ -2909,11 +3013,14 @@ def main() -> int:
                        build_s=builds, k2=k2, k1=k1, slice=sl, war=war,
                        combined=combined, economy=economy,
                        pf_battle=pf_battle, render=render,
-                       parallel=parallel, entry=entry, wall_s=wall_s,
+                       parallel=parallel, entry=entry, bench=bench_res,
+                       wall_s=wall_s,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
     # phase 6's captured K2 calls (formation install, structure relink)
-    captured = [combined["formation_k2"], combined["relink_k2"]]
+    # and phase 12's 64-chunk rebuild batch
+    captured = [combined["formation_k2"], combined["relink_k2"],
+                bench_res["rebuild_k2"]]
 
     def k2_row(shape_class, batch, launches):
         b = k2[batch]
@@ -2927,11 +3034,12 @@ def main() -> int:
                     plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
                     bound_by=b["bound_by"], library_ms=None)
 
-    # phases 4-9 and 11 in this process; phase 10's launches are its ranks'
-    # (the whole-map fields there go through the band integrator, not K2)
+    # phases 4-9, 11 and 12 in this process; phase 10's launches are its
+    # ranks' (the whole-map fields there go through the band integrator)
     launches = {k: sl["counts"][k] + war["counts"][k] + combined["counts"][k]
                 + economy["counts"][k] + pf_battle["counts"][k]
                 + render["counts"][k] + entry["counts"][k]
+                + bench_res["counts"][k]
                 for k in sl["counts"]}
     par, kb = parallel["counts"], parallel["k1_rows"]
     kernels = [
