@@ -222,6 +222,33 @@ package beside it. Phases, each printing its own line:
    no NaN position, and the obstacle battle's digest after its march equals
    phase 6's (the same spawn code, warm-up and three 120-frame ``step``
    windows, run twice: a reproducibility check). Prints the bench's lines, the checks and the wall seconds.
+13. the probes (``phase_probes``, ``permafrost_engine_tpu_torch/tools/
+   probe_*.py``), through their functions at the JAX probes' defaults:
+   one obstacle battle (``bench.build_battle(terrain=True)``, 10,256
+   slots) taken to contact and shared: ``probe_ablate`` and
+   ``probe_ablate_move`` time their variants of the raw tick from one
+   snapshot of it (a fresh one-frame ``TickGraphs`` per variant), then
+   ``probe_drive``, ``probe_steady`` and ``probe_extend`` (the windows
+   around the six-building drop) step it on; ``probe_obstacle`` on its own
+   obstacle battle; ``probe_soak`` on the flat battle (12 of its 40
+   ``step_scan(300)`` windows, a cut for the script's time);
+   ``probe_scale`` at 8,192 a side (16,640 slots); ``probe_render`` at
+   1280x720 with the sim windows and ``probe_render_breakdown`` at
+   640x384; ``probe_overlap`` at 256 a side for 30 s; ``probe_shard`` on
+   4 ranks sharing the card (4,096 slots for the collectives, the 65,536-
+   slot map-sharded soak). Fails unless the soak's invariants hold, each
+   ablation variant skipped its patched functions (0 calls of the
+   originals, its stand-ins called), K1 launched in the full tick and not
+   in ``no_move`` or ``no_hrvo``, the patched attributes are the originals
+   afterwards, ``probe_extend`` rebuilt chunks, launched K2 for chunks and
+   split the structure commit after the drop, the 16k battle launched K1 on 16,640 rows, had deaths
+   and no NaN, K1 is bit-equal to its plain version on one of those
+   launches' inputs (a comparison launch, not counted), and
+   ``probe_shard``'s soak is bit-identical to one device, its sharded tick
+   all-gathers, its map-sharded field exchanges halos and its replicated
+   tick makes no collective. Prints each probe's numbers,
+   the launches and each probe's wall seconds; writes everything to
+   ``chiprun_out/phase13_probes.json``.
 
 The script imports only the port and fails if any ``jax``/``jaxlib``/
 ``flax`` module or anything of the JAX package (``permafrost_engine_tpu``)
@@ -2953,6 +2980,310 @@ def phase_bench(dev, digest_march: str):
     return res
 
 
+# phase 13: the probes (tools/probe_*.py of the port), at the JAX defaults
+PROBE_SOAK_WINDOWS = 12      # probe_soak's 40 step_scan(300) windows, cut to
+                             # 12 (3,600 frames) for the script's time
+PROBE_SCALE_SIDE = 8192      # probe_scale: 16,384 fighters, 16,640 slots
+PROBE_SHARD_RANKS = 4        # probe_shard's ranks, all on one card
+
+
+def _free_engine() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def probes_contact(dev, walls: dict) -> dict:
+    """The obstacle battle (``bench.build_battle(terrain=True)``, 10,256
+    slots) to contact, shared by the two ablation probes (from one
+    snapshot), ``probe_drive``, ``probe_steady`` and ``probe_extend``."""
+    from permafrost_engine_tpu_torch import bench
+    from permafrost_engine_tpu_torch.tools import (
+        _probe_util as U, probe_ablate, probe_ablate_move, probe_drive,
+        probe_extend, probe_steady)
+
+    t0 = time.perf_counter()
+    eng = bench.build_battle(terrain=True, device=dev)
+    n0 = bench.alive_count(eng)
+    eng.step(60)
+    ff = U.to_contact(eng, n0)
+    res = {"max_ents": eng.cfg.max_ents, "frames_to_contact": ff,
+           "alive_at_contact": bench.alive_count(eng)}
+    walls["contact_battle"] = time.perf_counter() - t0
+    snap = U.snapshot(eng.state)
+    for name, probe in (("ablate", probe_ablate),
+                        ("ablate_move", probe_ablate_move)):
+        originals = {p: getattr(*p) for p in probe.POINTS}
+        t0 = time.perf_counter()
+        out = getattr(probe, name)(eng, snap, log=lambda m: log(f"  {m}"))
+        walls[name] = time.perf_counter() - t0
+        check(U.restored(probe.POINTS, originals),
+              f"probe_{name}: every patched attribute restored")
+        check(out["full"]["k1_launches"] > 0,
+              f"probe_{name}: K1 launched in the full tick")
+        for variant, patches in probe.VARIANTS:
+            for fn in (U.label(*p) for p in patches):
+                check(out[variant]["calls"][fn] == 0
+                      and out[variant]["standin_calls"].get(fn, 0) > 0,
+                      f"probe_{name} {variant}: {fn} skipped, its stand-in "
+                      "called")
+        no_k1 = "no_move" if name == "ablate" else "no_hrvo"
+        check(out[no_k1]["k1_launches"] == 0,
+              f"probe_{name} {no_k1}: no K1 launch ({out[no_k1]['k1_launches']})")
+        res[name] = out
+    del snap
+    for name, fn in (("drive", probe_drive.drive), ("steady", probe_steady.steady),
+                     ("extend", probe_extend.extend)):
+        t0 = time.perf_counter()
+        res[name] = (fn(eng, log=lambda m: log(f"  {m}")) if name == "drive"
+                     else fn(eng))
+        walls[name] = time.perf_counter() - t0
+    post = [res["extend"][f"post_drop_{i}"]
+            for i in range(probe_extend.POST_WINDOWS)]
+    rebuilt = sum(w["nav_stats"].get("chunks_rebuilt", 0) for w in post)
+    k2_post = sum(w["launches"]["k2_chunk"] for w in post)
+    check(rebuilt > 0 and k2_post > 0,
+          f"probe_extend: chunks rebuilt ({rebuilt}) and K2 chunk launches "
+          f"({k2_post}) after the drop")
+    check("portal_relink" in post[0]["commit_ms"],
+          f"probe_extend: the commit split in the drop's window "
+          f"({post[0]['commit_ms']})")
+    pos = eng.ents_host("alive", "pos")
+    check(bool(np.isfinite(pos["pos"][pos["alive"]]).all()),
+          "the shared battle's positions are finite")
+    del eng
+    _free_engine()
+    return res
+
+
+def probes_battles(dev, walls: dict) -> dict:
+    """``probe_obstacle`` (its own obstacle battle), ``probe_soak`` (the
+    flat battle) and ``probe_scale`` (16,640 slots)."""
+    from permafrost_engine_tpu_torch import bench
+    from permafrost_engine_tpu_torch.ops import crowd_cuda
+    from permafrost_engine_tpu_torch.tools import (
+        _probe_util as U, probe_obstacle, probe_scale, probe_soak)
+
+    res = {}
+    t0 = time.perf_counter()
+    res["obstacle"] = probe_obstacle.obstacle(
+        bench.build_battle(terrain=True, device=dev))
+    walls["obstacle"] = time.perf_counter() - t0
+    _free_engine()
+
+    t0 = time.perf_counter()
+    eng = bench.build_battle(device=dev)
+    eng.step(60)
+    res["soak"] = probe_soak.soak(eng, PROBE_SOAK_WINDOWS,
+                                  log=lambda m: log(f"  {m}"))
+    walls["soak"] = time.perf_counter() - t0
+    del eng
+    _free_engine()
+
+    rows, k1_in = set(), {}
+
+    def record(fn):
+        """Note each launch's rows; keep the first eager launch's inputs."""
+        def run(pos, *args, **kw):
+            rows.add(int(pos.shape[0]))
+            if not k1_in and not torch.cuda.is_current_stream_capturing():
+                k1_in.update(args=[t.clone() for t in (pos,) + args],
+                             exact=kw.get("exact", False))
+            return fn(pos, *args, **kw)
+        return run
+
+    t0 = time.perf_counter()
+    k1 = crowd_cuda.launches
+    with patched((crowd_cuda, "hrvo_select_cuda", record)):
+        eng = bench.build_battle(PROBE_SCALE_SIDE, device=dev)
+        n0 = bench.alive_count(eng)
+        eng.step(60)
+        res["scale_frames_to_contact"] = U.to_contact(eng, n0)
+        res["scale"] = probe_scale.scale(eng, log=lambda m: log(f"  {m}"))
+    k1 = crowd_cuda.launches - k1
+    walls["scale"] = time.perf_counter() - t0
+    sc = res["scale"]
+    slots = 2 * PROBE_SCALE_SIDE + 256
+    check(sc["max_ents"] == slots and rows == {slots} and k1 > 0,
+          f"probe_scale: K1 launched ({k1}) on {rows} rows, {slots} expected")
+    check(sc["alive_at_end"] < 2 * PROBE_SCALE_SIDE and sc["finite"],
+          f"probe_scale: deaths (alive at the end {sc['alive_at_end']}) and "
+          "no NaN")
+    res["scale"]["k1_launches"] = k1
+    del eng
+    _free_engine()
+    # K1 against its plain version on one launch's inputs at this width
+    # (not a launch of the main path: the counter is put back)
+    check(bool(k1_in), "probe_scale: an eager K1 launch's inputs were kept")
+    saved = crowd_cuda.launches
+    got = crowd_cuda.hrvo_select_cuda(*k1_in["args"], exact=k1_in["exact"])
+    crowd_cuda.launches = saved
+    want = crowd_cuda.hrvo_select_plain(*k1_in["args"], exact=k1_in["exact"])
+    torch.cuda.synchronize()
+    bad = int(rows_differ(got, want).sum())
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    err = float((got - want)[finite].abs().max())
+    check(bad == 0, f"K1 at {slots} rows (exact={k1_in['exact']}): {bad} rows "
+          "differ from the plain version")
+    res["scale"]["k1_check"] = dict(rows=int(k1_in["args"][0].shape[0]),
+                                    c2=int(k1_in["args"][5].shape[1]),
+                                    exact=k1_in["exact"], max_abs_err=err)
+    return res
+
+
+def probes_render(dev, walls: dict) -> dict:
+    """``probe_render`` at 1280x720 with ``--sim`` and
+    ``probe_render_breakdown`` at 640x384, each on its own scene."""
+    from permafrost_engine_tpu_torch import bench
+    from permafrost_engine_tpu_torch.tools import (
+        probe_render, probe_render_breakdown)
+
+    res = {}
+    t0 = time.perf_counter()
+    res["render"] = probe_render.render_probe(
+        *bench.render_scene(1000, dev), 1280, 720, 1000, sim=True,
+        log=lambda m: log(f"  {m}"))
+    walls["render"] = time.perf_counter() - t0
+    _free_engine()
+    t0 = time.perf_counter()
+    res["render_breakdown"] = probe_render_breakdown.breakdown(
+        *bench.render_scene(1000, dev), 640, 384, 1000,
+        log=lambda m: log(f"  {m}"))
+    walls["render_breakdown"] = time.perf_counter() - t0
+    _free_engine()
+    for name in ("render", "render_breakdown"):
+        check(res[name]["first_frame_s"] > 0, f"probe_{name} rendered")
+    check(len(res["render_breakdown"]["passes"]) > 0
+          and all("shadow_ms" in p for p in res["render_breakdown"]["passes"]),
+          "probe_render_breakdown: the per-pass split")
+    return res
+
+
+def probes_other(dev, walls: dict) -> dict:
+    """``probe_overlap`` (256 a side, 30 s) and ``probe_shard``
+    (`PROBE_SHARD_RANKS` ranks on the card)."""
+    from permafrost_engine_tpu_torch.tools import probe_overlap, probe_shard
+
+    res = {}
+    t0 = time.perf_counter()
+    res["overlap"] = probe_overlap.overlap(probe_overlap.build(256, dev), 30,
+                                           log=lambda m: log(f"  {m}"))
+    walls["overlap"] = time.perf_counter() - t0
+    _free_engine()
+    check(all(np.isfinite(r["depth_max"]) for r in res["overlap"]["seconds"]),
+          "probe_overlap: finite depths")
+    t0 = time.perf_counter()
+    sh = probe_shard.shard(PROBE_SHARD_RANKS, device="cuda",
+                           log=lambda m: log(f"  {m}"))
+    walls["shard"] = time.perf_counter() - t0
+    modes = sh["collectives_by_mode"]
+    check(sh["soak_64k_map_sharded"]["bit_identical"],
+          "probe_shard: the 64k map-sharded soak is bit-identical to one "
+          f"device ({sh['soak_64k_map_sharded']['differ']})")
+    check(modes["replicated"]["total_calls"] == 0,
+          "probe_shard: the replicated tick makes no collective")
+    check(modes["sharded"]["collectives"]["all_gather"]["calls"] > 0,
+          "probe_shard: the sharded tick all-gathers")
+    check(modes["map_sharded"]["field"]["collectives"]["halo"]["calls"] > 0,
+          "probe_shard: the map-sharded field exchanges halos")
+    res["shard"] = sh
+    return res
+
+
+def phase_probes(dev):
+    """Phase 13 (see the module docstring): every probe of the port's
+    ``tools/`` through its functions, at the JAX probes' defaults."""
+    t_phase = time.perf_counter()
+    _free_engine()
+    reset_counts()
+    walls: dict = {}
+    res = {}
+    for part in (probes_contact, probes_battles, probes_render, probes_other):
+        res.update(part(dev, walls))
+    counts = read_counts()
+    wall_s = time.perf_counter() - t_phase
+    res.update(counts=counts, walls=walls, wall_s=wall_s)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "phase13_probes.json"), "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    log_probes(res)
+    return res
+
+
+def log_probes(res: dict) -> None:
+    """Phase 13's lines: each probe's numbers, the launches and the walls."""
+    def fps(d):
+        return " ".join(f"{k}={v['fps']:.1f}" for k, v in d.items())
+
+    log(f"phase 13 shared obstacle battle: {res['max_ents']} slots, "
+        f"first death after {res['frames_to_contact']} fast-forward frames, "
+        f"alive at contact {res['alive_at_contact']}")
+    log(f"phase 13 probe_ablate (raw tick fps, one-frame graphs): "
+        f"{fps(res['ablate'])}; K1 launches "
+        + " ".join(f"{k}={v['k1_launches']}" for k, v in res["ablate"].items()))
+    log(f"phase 13 probe_ablate_move: {fps(res['ablate_move'])}; K1 launches "
+        + " ".join(f"{k}={v['k1_launches']}"
+                   for k, v in res["ablate_move"].items()))
+    d = res["drive"]
+    log(f"phase 13 probe_drive: step {d['fps_step']:.2f} fps, per-frame "
+        f"{d['fps_step_perframe']:.2f}, step_scan {d['fps_step_scan']:.2f}; "
+        f"profile_tick p50 {d['tick']['ms_p50']:.3f} ms, classes "
+        + json.dumps({k: v["ms_p50"] for k, v in d["tick"]["classes"].items()}))
+    st = res["steady"]
+    log(f"phase 13 probe_steady (at contact): {json.dumps(st['march_breakdown'])}"
+        f" fps micro {st['fps_micro']['median']} per-frame "
+        f"{st['fps_perframe']['median']} scan {st['fps_scan']['median']}; "
+        f"tick_ms_mean {st['tick_ms_mean']}")
+    log("phase 13 probe_extend: " + json.dumps(res["extend"],
+                                                separators=(",", ":")))
+    log("phase 13 probe_obstacle: " + json.dumps(
+        [{k: p[k] for k in ("phase", "fps_median", "host_counters_ms")}
+         for p in res["obstacle"]["phases"]], separators=(",", ":")))
+    so = res["soak"]
+    log(f"phase 13 probe_soak: {len(so['windows'])} windows to frame "
+        f"{so['frames']}, last {so['windows'][-1]}; live {so['live']} + free "
+        f"{so['free']} = {so['max_ents']}; uids {so['uids']}; "
+        f"{so['wall_s']:.1f} s")
+    sc = res["scale"]
+    log(f"phase 13 probe_scale: {sc['max_ents']} slots, first death after "
+        f"{res['scale_frames_to_contact']} fast-forward frames, alive at "
+        f"contact {sc['alive_at_contact']}, step {sc['fps_step']:.1f} fps, "
+        f"step_scan {sc['fps_step_scan']:.1f} fps, alive at the end "
+        f"{sc['alive_at_end']}, K1 launches {sc['k1_launches']}; K1 bit-equal "
+        f"to plain at {sc['k1_check']['rows']} x {sc['k1_check']['c2']} "
+        f"(exact={sc['k1_check']['exact']})")
+    r = res["render"]
+    log(f"phase 13 probe_render {r['resolution']}: p50 {r['render_ms_p50']:.1f}"
+        f" ms p90 {r['render_ms_p90']:.1f} ms; first frame "
+        f"{r['first_frame_s']:.2f} s; sim+render dec4 "
+        f"{r['sim_plus_render_fps_dec4']:.1f} dec2 "
+        f"{r['sim_plus_render_fps_dec2']:.1f} sim fps")
+    rb = res["render_breakdown"]
+    log(f"phase 13 probe_render_breakdown {rb['resolution']}: no overlays "
+        f"{rb['render_ms_p50_no_overlays']:.1f} ms, full "
+        f"{rb['render_ms_p50_full']:.1f} ms, same frame "
+        f"{rb['same_frame_ms']:.1f} ms; passes {json.dumps(rb['passes'][-1])}")
+    ov = res["overlap"]["seconds"]
+    log("phase 13 probe_overlap (256 a side): " + " ".join(
+        f"t{o['t']}={o['overlap_frac']:.3f}/{o['depth_max']:.2f}/{o['alive']}"
+        for o in ov[::5]))
+    sh = res["shard"]
+    log(f"phase 13 probe_shard: {sh['mesh_note']}; per tick (rank 0) "
+        + json.dumps({m: {k: v["calls"] for k, v in c["per_tick"].items()}
+                      for m, c in sh["collectives_by_mode"].items()})
+        + f"; map-sharded field {sh['collectives_by_mode']['map_sharded']['field']}"
+        f"; memory per rank "
+        + json.dumps({m: c["memory_per_rank"]
+                      for m, c in sh["collectives_by_mode"].items()})
+        + f"; 64k soak bit_identical={sh['soak_64k_map_sharded']['bit_identical']}"
+        f" memory {sh['soak_64k_map_sharded']['memory_per_rank']}; K1 launches"
+        f" per rank {sh['k1_launches_per_rank']}")
+    log(f"phase 13 launches={res['counts']}; walls_s " + " ".join(
+        f"{k}={v:.1f}" for k, v in res["walls"].items())
+        + f"; wall_s={res['wall_s']:.1f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3003,9 +3334,10 @@ def main() -> int:
     parallel = phase_parallel(dev)
     entry = phase_entry(dev)
     bench_res = phase_bench(dev, combined["digest_march"])
+    probes = phase_probes(dev)
 
     wall_s = time.perf_counter() - t_start
-    log(f"phases 0-12 wall_s={wall_s:.1f}")
+    log(f"phases 0-13 wall_s={wall_s:.1f}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(device=smi[0], torch=torch.__version__,
@@ -3014,7 +3346,7 @@ def main() -> int:
                        combined=combined, economy=economy,
                        pf_battle=pf_battle, render=render,
                        parallel=parallel, entry=entry, bench=bench_res,
-                       wall_s=wall_s,
+                       probes=probes, wall_s=wall_s,
                        ptxas={k: v[1] for k, v in cuda_build.BUILD_INFO.items()}),
                   f, indent=1)
     # phase 6's captured K2 calls (formation install, structure relink)
@@ -3034,12 +3366,12 @@ def main() -> int:
                     plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
                     bound_by=b["bound_by"], library_ms=None)
 
-    # phases 4-9, 11 and 12 in this process; phase 10's launches are its
+    # phases 4-9 and 11-13 in this process; phase 10's launches are its
     # ranks' (the whole-map fields there go through the band integrator)
     launches = {k: sl["counts"][k] + war["counts"][k] + combined["counts"][k]
                 + economy["counts"][k] + pf_battle["counts"][k]
                 + render["counts"][k] + entry["counts"][k]
-                + bench_res["counts"][k]
+                + bench_res["counts"][k] + probes["counts"][k]
                 for k in sl["counts"]}
     par, kb = parallel["counts"], parallel["k1_rows"]
     kernels = [
@@ -3050,7 +3382,8 @@ def main() -> int:
              source="permafrost_engine_tpu_torch/csrc/hrvo.cu",
              replaces="permafrost_engine_tpu/ops/crowd_pallas.py:315",
              launches=launches["k1"],
-             max_abs_err=max(k1[m]["max_abs_err"] for m in ("exact", "fan")),
+             max_abs_err=max([k1[m]["max_abs_err"] for m in ("exact", "fan")]
+                             + [probes["scale"]["k1_check"]["max_abs_err"]]),
              ms=k1["exact"]["ms"], plain_ms=k1["exact"]["plain_ms"],
              bound_ms=k1["exact"]["bound_ms"], bound_by=k1["exact"]["bound_by"],
              library_ms=None),

@@ -418,17 +418,13 @@ def run_battle(terrain: bool, full: bool = False, device="cuda") -> dict:
     }
 
 
-def measure_render(w: int = RENDER_W, h: int = RENDER_H,
-                   n_ents: int = RENDER_ENTS, frames: int = RENDER_FRAMES,
-                   device="cuda") -> dict:
-    """The render cell: ms per frame at WxH of the battle map with ~1k units
-    at war, water reflection and refraction, the light-ortho shadow pass
-    and the overlays. ``render`` ends in the u8 frame's host copy, so each
-    call is a true wall-clock frame. Also the sim at a render every 4th
-    frame (the demos' 15 Hz presentation)."""
+def render_scene(n_ents: int = RENDER_ENTS, device="cuda") -> tuple:
+    """The render cell's scene and view: the battle map (32-joint skinning)
+    with `n_ents` units in two blocks at war (rng seed 0), each ordered
+    across, and a camera over the map's middle, 50 degrees down. Returns
+    (engine, camera)."""
     from permafrost_engine_tpu_torch.assets.mapgen import make_battle_map
     from permafrost_engine_tpu_torch.render.camera import Camera
-    from permafrost_engine_tpu_torch.render.scene import SceneRenderer
 
     cfg = EngineConfig(max_ents=n_ents + 64, skin_joints=32)
     eng = Engine(cfg, device=device)
@@ -449,6 +445,20 @@ def measure_render(w: int = RENDER_W, h: int = RENDER_H,
     cam.pos = np.array([eng.cfg.world_w / 2, 220.0,
                         eng.cfg.world_h / 2 + 180.0])
     cam.pitch, cam.yaw = -50.0, 90.0
+    return eng, cam
+
+
+def measure_render(w: int = RENDER_W, h: int = RENDER_H,
+                   n_ents: int = RENDER_ENTS, frames: int = RENDER_FRAMES,
+                   device="cuda") -> dict:
+    """The render cell: ms per frame at WxH of the battle map with ~1k units
+    at war, water reflection and refraction, the light-ortho shadow pass
+    and the overlays. ``render`` ends in the u8 frame's host copy, so each
+    call is a true wall-clock frame. Also the sim at a render every 4th
+    frame (the demos' 15 Hz presentation)."""
+    from permafrost_engine_tpu_torch.render.scene import SceneRenderer
+
+    eng, cam = render_scene(n_ents, device)
     eng.step(30)
     r = SceneRenderer(eng, w=w, h=h, maxi=n_ents,
                       shadows=True, reflections=True)
