@@ -45,10 +45,10 @@ from permafrost_engine_tpu_torch.state.convert import (state_from_numpy,
 FORMAT_VERSION = 4
 
 # NavService attributes the JAX blob lists by name (restored as it does)
-# and those that are no session state (the config and device)
+# and those that are no session state (the config, device and profiler)
 _NAV_LISTED = {"structure_ref", "slot_mirror", "los_mirror", "flow_cache",
                "los_cache", "flock_chunks", "flock_goal", "_blocker_snap",
-               "terrain_cost", "cost_base", "cfg", "device"}
+               "terrain_cost", "cost_base", "cfg", "device", "perf"}
 
 
 def engine_tokens(engine) -> dict[str, object]:

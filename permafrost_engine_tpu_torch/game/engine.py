@@ -185,7 +185,9 @@ class Engine:
         if cost_base is None:
             cost_base = np.ones((cfg.num_layers, cfg.field_h, cfg.field_w),
                                 np.uint8)
-        self.nav = NavService(cfg, cost_base, device=self.device)
+        self.perf = Perf()
+        self.nav = NavService(cfg, cost_base, device=self.device,
+                              perf=self.perf)
         self.state.nav.cost_base = torch.from_numpy(
             np.ascontiguousarray(self.nav.cost_base)).to(self.device)
         self.heights = np.zeros((cfg.field_h, cfg.field_w), np.float32)
@@ -220,7 +222,6 @@ class Engine:
         self.call_graph_log: deque = deque(maxlen=16)
         self.mem_stats_log: deque = deque(maxlen=8)
         self.sched = Scheduler(self.bus)
-        self.perf = Perf()
         self.settings = Settings()
         self.economy = Economy(self)
         self.regions = RegionSystem(self.bus)
@@ -288,15 +289,15 @@ class Engine:
         fieldcache.h:53-167). A flock whose effective goal is unchanged
         keeps its members' ring slots; one that became unreachable is
         dropped (members direct-seek). Returns the flock ids replanned."""
-        st = self.state
-        active = st.flocks.active.cpu().numpy()
+        st, fetch = self.state, self.perf.fetch
+        active = fetch(st.flocks.active)
         if not active.any():
             return set()
-        flock = st.ents.flock.cpu().numpy()
-        alive = st.ents.alive.cpu().numpy()
-        pos = st.ents.pos.cpu().numpy()
-        layers = st.flocks.layer.cpu().numpy()
-        dests = st.flocks.dest.cpu().numpy()
+        flock = fetch(st.ents.flock)
+        alive = fetch(st.ents.alive)
+        pos = fetch(st.ents.pos)
+        layers = fetch(st.flocks.layer)
+        dests = fetch(st.flocks.dest)
         reqs, members_of = [], {}
         for fid in np.nonzero(active)[0]:
             fid = int(fid)
@@ -534,15 +535,23 @@ class Engine:
         """Order units to a destination: one flock per nav layer of the
         selection (ref: split_into_layers, movement.c:771-787), every
         layer's path planned in ONE batched request, fields installed
-        (ref: G_Move_SetDest -> N_RequestPath, movement.c:4717, 930)."""
+        (ref: G_Move_SetDest -> N_RequestPath, movement.c:4717, 930).
+        Profiled as the scope ``order`` (``core/perf.py``), with its
+        parts ``order.plan``, ``order.install``, ``order.ring`` and
+        ``order.extend`` and its device fetches ``order.fetch``."""
         if not uids:
             return False
+        with self.perf.scope("order", owner=True):
+            return self._move(uids, goal_xz)
+
+    def _move(self, uids: list[int], goal_xz) -> bool:
+        fetch = self.perf.fetch
         self._commit_nav()   # orders see pending structure stamps
         if self.nav._blocker_snap is None or not self.nav.flock_chunks:
-            self.nav.update_blockers(self.state.nav.blockers.cpu().numpy())
+            self.nav.update_blockers(fetch(self.state.nav.blockers))
         slots = np.array([self.uid_to_slot[u] for u in uids], np.int64)
-        layers = self.state.ents.layer.cpu().numpy()[slots]
-        all_pos = self.state.ents.pos.cpu().numpy()
+        layers = fetch(self.state.ents.layer)[slots]
+        all_pos = fetch(self.state.ents.pos)
 
         groups, reqs = [], []
         for layer in np.unique(layers):
@@ -553,13 +562,19 @@ class Engine:
             groups.append((guids, group, int(layer), fid))
             reqs.append((fid, start, goal_xz, int(layer)))
 
-        self.state, results = self.nav.request_paths(self.state, reqs)
+        with self.perf.scope("order.plan"):
+            self.state, results, plans = self.nav.plan_paths(self.state, reqs)
+        if plans:
+            with self.perf.scope("order.install"):
+                self.state = self.nav._install_fields_batch(self.state, plans)
         ok_any = False
         for (guids, group, layer, fid), (ok, eff_goal) in zip(groups, results):
-            self._apply_move_result(guids, group, goal_xz, layer, fid, ok,
-                                    eff_goal)
+            with self.perf.scope("order.ring"):
+                self._apply_move_result(guids, group, goal_xz, layer, fid, ok,
+                                        eff_goal)
             if ok:
-                self._extend_stray_chunks(fid, all_pos[group])
+                with self.perf.scope("order.extend"):
+                    self._extend_stray_chunks(fid, all_pos[group])
             ok_any |= ok
         return ok_any
 
@@ -581,9 +596,10 @@ class Engine:
         self._commit_nav()
         cfg, dev = self.cfg, self.device
         slots = np.array([self.uid_to_slot[u] for u in uids], np.int64)
-        all_pos = self.state.ents.pos.cpu().numpy()
-        all_rad = self.state.ents.radius.cpu().numpy()
-        layers = self.state.ents.layer.cpu().numpy()[slots]
+        fetch = self.perf.fetch
+        all_pos = fetch(self.state.ents.pos, "order.fetch")
+        all_rad = fetch(self.state.ents.radius, "order.fetch")
+        layers = fetch(self.state.ents.layer, "order.fetch")[slots]
         goal = np.asarray(goal_xz, np.float32)
         direction = goal - all_pos[slots].mean(axis=0)
         if np.linalg.norm(direction) < 1e-3:
@@ -594,13 +610,13 @@ class Engine:
             return False
         # each layer forms at its flock's effective destination (a
         # cross-island goal retargets to the reachable side)
-        flock_of = self.state.ents.flock.cpu().numpy()
-        flock_dest = self.state.flocks.dest.cpu().numpy()
+        flock_of = fetch(self.state.ents.flock, "order.fetch")
+        flock_dest = fetch(self.state.flocks.dest, "order.fetch")
         own_r = np.clip((all_pos[slots, 1] / NAV_TILE_SIZE).astype(int), 0,
                         cfg.field_h - 1)
         own_c = np.clip((all_pos[slots, 0] / NAV_TILE_SIZE).astype(int), 0,
                         cfg.field_w - 1)
-        blockers_all = self.state.nav.blockers.cpu().numpy()
+        blockers_all = fetch(self.state.nav.blockers, "order.fetch")
         depth_off = 0.0
         any_cells = False
         slot_uid = {s: u for u, s in zip(uids, slots.tolist())}
@@ -630,7 +646,9 @@ class Engine:
                 if len(cells) == 0:
                     continue   # this block keeps its ring-slot dests
                 any_cells = True
-                assign = assign_cells(all_pos[group], cells, device=dev)
+                assign = assign_cells(
+                    all_pos[group], cells, device=dev,
+                    fetch=lambda t: fetch(t, "order.fetch"))
                 my_cells = cells[np.clip(assign, 0, len(cells) - 1)]
                 sl = torch.from_numpy(group).to(dev)
                 cj = torch.from_numpy(my_cells).to(dev)
@@ -658,9 +676,9 @@ class Engine:
         deletes empty flocks, movement.c make_flocks)."""
         e, fl = self.state.ents, self.state.flocks
         members = torch.where(e.alive, e.flock, -1)
-        counts = torch.bincount(members[members >= 0].long(),
-                                minlength=self.cfg.max_flocks).cpu().numpy()
-        active = fl.active.cpu().numpy()
+        counts = self.perf.fetch(torch.bincount(
+            members[members >= 0].long(), minlength=self.cfg.max_flocks))
+        active = self.perf.fetch(fl.active)
         freed = [f for f in range(self.cfg.max_flocks)
                  if active[f] and counts[f] == 0]
         if not freed:
@@ -696,8 +714,8 @@ class Engine:
     def _ring_dests(self, slots: np.ndarray, goal_xz, layer: int) -> np.ndarray:
         """Per-unit packed ring-slot destinations around the goal (ref:
         arrival.h ring fill)."""
-        pos = self.state.ents.pos.cpu().numpy()[slots]
-        radius = self.state.ents.radius.cpu().numpy()[slots]
+        pos = self.perf.fetch(self.state.ents.pos)[slots]
+        radius = self.perf.fetch(self.state.ents.radius)[slots]
         spacing = max(float(radius.max()) * 3.0, ARRIVAL_THRESHOLD + 1.0)
         return np.asarray(assign_ring_slots(
             pos, np.asarray(goal_xz, np.float32), spacing,
@@ -856,7 +874,7 @@ class Engine:
         registered after it is not treated as dead. With `specs_out` the
         specs are collected for one batched build."""
         if active is None:
-            active = self.state.flocks.active.cpu().numpy()
+            active = self.perf.fetch(self.state.flocks.active)
         if snap_frame is None:
             snap_frame = self._frame
         if sigs is None:
@@ -879,9 +897,9 @@ class Engine:
     def _faction_chunk_sigs(self) -> np.ndarray:
         """Per-(faction, chunk) presence signatures (host copy)."""
         e = self.state.ents
-        return _chunk_sig_kernel(
+        return self.perf.fetch(_chunk_sig_kernel(
             e.pos, e.alive, e.faction, f_n=self.cfg.max_factions,
-            cr=self.cfg.chunks_r, cc=self.cfg.chunks_c).cpu().numpy()
+            cr=self.cfg.chunks_r, cc=self.cfg.chunks_c))
 
     def _enemies_changed(self, key, faction: int, sigs: np.ndarray) -> bool:
         """Did any faction at war with `faction` change its chunk
@@ -911,9 +929,9 @@ class Engine:
             sigs = self._faction_chunk_sigs()
         if fl_counts is None:
             e = self.state.ents
-            fl_counts = _faction_layer_counts(
+            fl_counts = self.perf.fetch(_faction_layer_counts(
                 e.alive, e.hp, e.faction, e.layer, f_n=self.cfg.max_factions,
-                l_n=self.cfg.num_layers).cpu().numpy()
+                l_n=self.cfg.num_layers))
         for (f, lay), slot in list(self._chase_gslot.items()):
             if fl_counts[f, lay] == 0:
                 del self._chase_gslot[(f, lay)]
@@ -995,7 +1013,12 @@ class Engine:
         frame-granular semantics, main.c:86-98), re-read every segment so a
         task that pauses mid-call takes effect at the next frame. While
         paused the frame and the nav commit advance and the host systems
-        run, but no tick."""
+        run, but no tick. The call is the ``Perf`` scope ``step``, each
+        segment a frame of ``Perf``'s tree."""
+        with self.perf.scope("step", owner=True):
+            self._step(n_frames)
+
+    def _step(self, n_frames: int) -> None:
         left = n_frames
         while left > 0:
             paused = self.sim_state == SimState.PAUSED_FULL
@@ -1020,7 +1043,8 @@ class Engine:
                     # (perf.h:155-163): time this segment's device
                     # completion synchronously — a measurement cost
                     t0 = time.perf_counter()
-                    self._sync()
+                    with self.perf.wait():
+                        self._sync()
                     self.perf.counters["trace_gpu_device_ms"] += (
                         time.perf_counter() - t0) * 1e3
                 with self.perf.scope("drain_deltas"):
@@ -1043,6 +1067,7 @@ class Engine:
                 self.call_graph_log.append(
                     [(e.name, round(e.ms, 3), e.parent) for e in frame])
             left -= k
+        self.perf.end_tick()
         self.flush_deltas()
         self.bus.service_queue(self.sim_state)
 
@@ -1128,7 +1153,8 @@ class Engine:
             return {n: getattr(table, n).numpy().copy() for n in names}
         out = {n: getattr(table, n).to("cpu", non_blocking=True)
                for n in names}
-        torch.cuda.current_stream(self.device).synchronize()
+        with self.perf.wait():
+            torch.cuda.current_stream(self.device).synchronize()
         return {n: t.numpy() for n, t in out.items()}
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -1182,15 +1208,23 @@ class Engine:
         first); flock members in chunks off their path get fields (K2); the
         blocker grid is installed, and a flock whose corridor flipped
         replans at most every 4 periods, only when the flip is outside its
-        goal chunk and changes whether its route needs a detour."""
-        period = self.seek_refresh_period
-        cfg = self.cfg
+        goal chunk and changes whether its route needs a detour.
+
+        A cadence that takes a snapshot is the ``Perf`` scope ``cadence``;
+        its device fetches are ``cadence.fetch`` waits."""
         t0 = time.perf_counter()
         any_war = bool(np.any(self._host_diplomacy == DiplomacyState.WAR))
         want_blockers = (bool(self.nav.flock_chunks)
-                         and self._frame % (2 * period) == 0)
+                         and self._frame % (2 * self.seek_refresh_period) == 0)
         if not (self._seek_flocks or any_war or want_blockers):
             return
+        with self.perf.scope("cadence", owner=True):
+            self._cadence(t0, any_war, want_blockers)
+
+    def _cadence(self, t0: float, any_war: bool, want_blockers: bool) -> None:
+        """``_nav_cadence`` from the snapshot on."""
+        period = self.seek_refresh_period
+        cfg, fetch = self.cfg, self.perf.fetch
         e = self.state.ents
         snap = (
             _chunk_sig_kernel(e.pos, e.alive, e.faction, f_n=cfg.max_factions,
@@ -1208,16 +1242,16 @@ class Engine:
         if prev is None:
             return
         snap_frame, (dsig, dact, dblk, dflc, docc) = prev
-        sigs = dsig.cpu().numpy()
+        sigs = fetch(dsig)
         t0 = self._timed("blk_sig_fetch_ms", t0)
         field_specs: list = []
         if self._seek_flocks:
-            self.refresh_seek_fields(sigs, dact.cpu().numpy(), snap_frame,
+            self.refresh_seek_fields(sigs, fetch(dact), snap_frame,
                                      specs_out=field_specs)
             t0 = self._timed("seek_refresh_ms", t0)
         if any_war:
             self._refresh_chase_fields(
-                sigs, dflc.cpu().numpy() if dflc is not None else None,
+                sigs, fetch(dflc) if dflc is not None else None,
                 specs_out=field_specs)
             t0 = self._timed("chase_refresh_ms", t0)
         if field_specs:
@@ -1226,7 +1260,7 @@ class Engine:
             t0 = self._timed("field_batch_ms", t0)
         occ = None
         if docc is not None:
-            occ = docc.cpu().numpy()
+            occ = fetch(docc)
             t0 = self._timed("blk_occ_fetch_ms", t0)
             wants = {}
             for fid in list(self.nav.flock_chunks):
@@ -1239,7 +1273,7 @@ class Engine:
             t0 = self._timed("blk_extend_ms", t0)
         if dblk is None:
             return
-        changed = self.nav.update_blockers(dblk.cpu().numpy())
+        changed = self.nav.update_blockers(fetch(dblk))
         t0 = self._timed("blk_update_ms", t0)
         if not changed:
             return
@@ -1290,7 +1324,8 @@ class Engine:
     def _drain_window(self, window) -> None:
         bufs, event = window
         if event is not None:
-            event.synchronize()
+            with self.perf.wait("step.drain"):
+                event.synchronize()
         self._drain({k: v.numpy() for k, v in bufs.items()})
 
     def flush_deltas(self) -> None:
@@ -1299,7 +1334,9 @@ class Engine:
         if self._inflight is not None:
             ready, self._inflight = self._inflight, None
             self._drain_window(ready)
-        self._drain({k: v.cpu().numpy() for k, v in vars(self._acc).items()})
+        with self.perf.wait("step.flush"):
+            h = {k: v.cpu().numpy() for k, v in vars(self._acc).items()}
+        self._drain(h)
         reset_deltas(self._acc)
 
     def _drain(self, h: dict) -> None:

@@ -98,20 +98,23 @@ def block_depth(cells: np.ndarray, direction: np.ndarray) -> float:
 
 
 def assign_cells(units_pos: np.ndarray, cells: np.ndarray, *, device,
-                 stats: dict | None = None) -> np.ndarray:
+                 stats: dict | None = None,
+                 fetch=lambda t: t.cpu().numpy()) -> np.ndarray:
     """Unit->cell mapping by squared distance: the auction on `device`,
-    then a greedy fill for stragglers. Returns a writable i32[n] cell index
-    per unit. With ``stats``: the auction's ``rounds``, and ``greedy`` (the
-    number of units the greedy fill placed)."""
+    brought to the host by `fetch` (the engine's passes it through its
+    profiler's waits), then a greedy fill for stragglers. Returns a
+    writable i32[n] cell index per unit. With ``stats``: the auction's
+    ``rounds``, and ``greedy`` (the number of units the greedy fill
+    placed)."""
     n, m = len(units_pos), len(cells)
     diff = units_pos[:, None, :] - cells[None, :, :]
     cost = (diff ** 2).sum(-1).astype(np.float32)
     dev = torch.device(device)
-    assign = auction_assign(
+    assign = fetch(auction_assign(
         torch.from_numpy(cost).to(dev),
         torch.ones(n, dtype=torch.bool, device=dev),
         torch.ones(m, dtype=torch.bool, device=dev),
-        stats=stats).cpu().numpy().copy()
+        stats=stats)).copy()
     # fallback for any unassigned stragglers (auction round cap): greedy
     unfilled = np.nonzero(assign < 0)[0]
     if stats is not None:

@@ -151,11 +151,16 @@ def span_seed_batch(portals: list[Portal], cost_layer: np.ndarray):
     return costs, seeds
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
 def build_portal_graph(cost_layer: np.ndarray, chunks_r: int, chunks_c: int,
-                       *, device) -> PortalGraph:
+                       *, device, fetch=_host) -> PortalGraph:
     """Portals of one nav layer's effective cost u8[H, W], with cross-edge
     links (cost 1) and intra-chunk links (integration cost between spans,
-    all portals in one batched integration on `device`)."""
+    all portals in one batched integration on `device`, brought to the host
+    by `fetch`: the engine's passes it through its profiler's waits)."""
     portals, by_chunk = find_portals(cost_layer, chunks_r, chunks_c)
     adj: dict[int, list[tuple[int, float]]] = {p.pid: [] for p in portals}
     for p in portals:
@@ -163,8 +168,8 @@ def build_portal_graph(cost_layer: np.ndarray, chunks_r: int, chunks_c: int,
             adj[p.pid].append((p.paired, 1.0))
     if portals:
         costs, seeds = span_seed_batch(portals, cost_layer)
-        integ = integrate(torch.from_numpy(costs).to(device),
-                          torch.from_numpy(seeds).to(device)).cpu().numpy()
+        integ = fetch(integrate(torch.from_numpy(costs).to(device),
+                                torch.from_numpy(seeds).to(device)))
         for p in portals:
             for qid in by_chunk[p.chunk]:
                 if qid == p.pid:
@@ -178,7 +183,8 @@ def build_portal_graph(cost_layer: np.ndarray, chunks_r: int, chunks_c: int,
 
 def update_portal_graph(graph: PortalGraph, cost_layer: np.ndarray,
                         dirty_chunks: set[tuple[int, int]], chunks_r: int,
-                        chunks_c: int, *, device) -> tuple[PortalGraph, int]:
+                        chunks_c: int, *, device,
+                        fetch=_host) -> tuple[PortalGraph, int]:
     """Rebuild a portal graph after cost edits confined to `dirty_chunks`
     (ref: N_Update, src/navigation/nav.c:2119-2206): portals and links of
     untouched chunks are carried over (pids compact), border runs are
@@ -189,7 +195,8 @@ def update_portal_graph(graph: PortalGraph, cost_layer: np.ndarray,
     graph, number of chunks relinked)."""
     if len(dirty_chunks) * 3 >= chunks_r * chunks_c:
         return (build_portal_graph(cost_layer, chunks_r, chunks_c,
-                                   device=device), chunks_r * chunks_c)
+                                   device=device, fetch=fetch),
+                chunks_r * chunks_c)
 
     relink = set(dirty_chunks)
     for r, k in dirty_chunks:
@@ -266,8 +273,8 @@ def update_portal_graph(graph: PortalGraph, cost_layer: np.ndarray,
                                   cc * FIELD_RES:(cc + 1) * FIELD_RES]
             t = p.span_tiles()
             seeds[i, t[:, 0], t[:, 1]] = True
-        integ = integrate(torch.from_numpy(costs).to(device),
-                          torch.from_numpy(seeds).to(device)).cpu().numpy()
+        integ = fetch(integrate(torch.from_numpy(costs).to(device),
+                                torch.from_numpy(seeds).to(device)))
         for i, p in enumerate(todo):
             for qid in by_chunk[p.chunk]:
                 if qid == p.pid:

@@ -54,6 +54,7 @@ from permafrost_engine_tpu_torch.core.config import (
     NUM_FOOTPRINTS,
     NavDomain,
 )
+from permafrost_engine_tpu_torch.core.perf import Perf
 from permafrost_engine_tpu_torch.nav import portals as pt
 from permafrost_engine_tpu_torch.ops import flowfield as ff
 from permafrost_engine_tpu_torch.ops.flowfield_cuda import integrate
@@ -105,9 +106,13 @@ class NavService:
     ``los_mirror``) and int32 in the device tables, explicitly converted
     when pushed."""
 
-    def __init__(self, cfg: EngineConfig, cost_base: np.ndarray, *, device):
+    def __init__(self, cfg: EngineConfig, cost_base: np.ndarray, *, device,
+                 perf: Perf | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
+        # the owning engine's profiler: the service's device fetches are
+        # its waits, named after the order or cadence they serve
+        self.perf = perf or Perf()
         self.terrain_cost = cost_base.copy()
         self.cost_base = cost_base.copy()
         # structure refcounts at ground resolution; footprint layers see them
@@ -144,7 +149,7 @@ class NavService:
         if layer not in self._graphs:
             self._graphs[layer] = pt.build_portal_graph(
                 self.cost_base[layer], self.cfg.chunks_r, self.cfg.chunks_c,
-                device=self.device)
+                device=self.device, fetch=self.perf.fetch)
         return self._graphs[layer]
 
     def islands(self, layer: int) -> np.ndarray:
@@ -152,7 +157,7 @@ class NavService:
         ref: n_update_components, nav.c:655)."""
         if layer not in self._islands:
             cost = torch.from_numpy(self.cost_base[layer]).to(self.device)
-            self._islands[layer] = label_islands(cost).cpu().numpy()
+            self._islands[layer] = self.perf.fetch(label_islands(cost))
         return self._islands[layer]
 
     def invalidate_layer(self, layer: int) -> None:
@@ -249,7 +254,8 @@ class NavService:
                 continue
             self._graphs[layer], n_relinked = pt.update_portal_graph(
                 self._graphs[layer], self.cost_base[layer], dirty_rc,
-                self.cfg.chunks_r, cc_n, device=self.device)
+                self.cfg.chunks_r, cc_n, device=self.device,
+                fetch=self.perf.fetch)
             self.stats["chunks_rebuilt"] += n_relinked
         # a cutout can split an island anywhere: relabel lazily
         for layer in list(self._islands):
@@ -497,6 +503,15 @@ class NavService:
         (flock_id, start_xz, goal_xz, layer). Returns (state, [(reachable,
         effective_goal_xz)]): an unreachable goal retargets to the closest
         tile of the start's island (ref: nav.c:1860-1935)."""
+        state, results, plans = self.plan_paths(state, reqs)
+        if plans:
+            state = self._install_fields_batch(state, plans)
+        return state, results
+
+    def plan_paths(self, state: GameState, reqs):
+        """``request_paths`` up to the field install: islands, the start
+        and goal integration, portal A*. Returns (state, results, plans),
+        the plans for ``_install_fields_batch``."""
         cfg = self.cfg
         results: list = [None] * len(reqs)
         live = []
@@ -528,7 +543,8 @@ class NavService:
             live.append((ri, fid, layer, (sr, sc), (gr, gc), goal_xz))
 
         if not live:
-            return state, [r or (False, reqs[i][2]) for i, r in enumerate(results)]
+            return state, [r or (False, reqs[i][2])
+                           for i, r in enumerate(results)], []
 
         # one integration over every live request's start + goal chunks
         # (static cost: the requesters' own blockers must not bury seeds)
@@ -542,7 +558,7 @@ class NavService:
                 layer, *self._chunk_of_tile(gr, gc), with_blockers=False)
             seeds[2 * i, sr % FIELD_RES, sc % FIELD_RES] = True
             seeds[2 * i + 1, gr % FIELD_RES, gc % FIELD_RES] = True
-        integ = self._integrate_host(costs, seeds).cpu().numpy()
+        integ = self.perf.fetch(self._integrate_host(costs, seeds))
 
         plans = []
         for i, (ri, fid, layer, (sr, sc), (gr, gc), goal_xz) in enumerate(live):
@@ -581,10 +597,7 @@ class NavService:
             plans.append(dict(flock_id=fid, layer=layer, goal_rc=(gr, gc),
                               chunk_seq=chunk_seq, extend=False))
             results[ri] = (True, goal_xz)
-
-        if plans:
-            state = self._install_fields_batch(state, plans)
-        return state, results
+        return state, results, plans
 
     @staticmethod
     def _chunk_seq_from_path(graph, path, goal_costs, g_chunk):
@@ -633,7 +646,7 @@ class NavService:
             gcost = self._chunk_cost(layer, *g_chunk, with_blockers=False)[None]
             seeds = np.zeros((1, FIELD_RES, FIELD_RES), bool)
             seeds[0, gr % FIELD_RES, gc % FIELD_RES] = True
-            ginteg = self._integrate_host(gcost, seeds).cpu().numpy()[0]
+            ginteg = self.perf.fetch(self._integrate_host(gcost, seeds))[0]
             goal_costs_all = self._portal_span_costs(graph, ginteg, g_chunk)
             self._goal_span_cache[(layer, gr, gc)] = goal_costs_all
         blocked, buried = self._blocked_edges(layer)
