@@ -92,8 +92,8 @@ package beside it. Phases, each printing its own line:
    animation system, 2 storage sites, a founded and supplied building with
    2 builders, a garrison tower and a transport taking 4 scouts to it) and
    two regions. Two script tasks wait on 10 deaths each and a third pauses
-   the game for 30 frames, so ``step(60)`` runs frame by frame (eagerly)
-   until no task lives; then micro-batched ``step(60)`` and
+   the game for 30 frames, so ``step(60)`` runs frame by frame (one-frame
+   graph segments) until no task lives; then micro-batched ``step(60)`` and
    ``step_scan(120)`` windows (6-frame graph segments), ``profile_tick(60)``
    twice and ``tick_cost_analysis``, a session saved and loaded on the
    card, both engines stepped 240 frames, and a ``SubsessionStack`` push
@@ -117,7 +117,7 @@ package beside it. Phases, each printing its own line:
    (``pf.inject_mouse_click(x, y, 3)``) at the screen point of the other
    side's centroid through the active RTS camera. A death handler and a
    ``pf.Task`` that waits for 10 deaths; ``pf.step(60)`` frame by frame
-   (eagerly) until a death is drained and the task has ended, then three
+   (one-frame graph segments) until a death is drained and the task has ended, then three
    graphed ``pf.step(120)`` contact windows with ``pf.disable_fog_of_war``
    and ``pf.enable_fog_of_war`` between them. After every window the
    ``hp`` and ``pos`` properties of 64 fixed entities are read and held
@@ -138,7 +138,7 @@ package beside it. Phases, each printing its own line:
    frame is u8 640x384 and not flat, the units draw over 1,000 of its
    pixels (against the same frame drawn with no instances) and both
    armies' dots show on the minimap. Prints spawn ms per entity, ms per
-   frame eager and graphed, ms per property read and per query, save and
+   frame with the task and graphed, ms per property read and per query, save and
    load ms, blob bytes, the digests, the dumps' ms and peak memory;
 9. the render cell (``phase_render``): ``bench.py``'s ``measure_render``
    scene through the port, nothing cut: the battle map,
@@ -727,14 +727,19 @@ def synced_call(fn, *args) -> float:
 
 def graph_summary(eng) -> dict:
     """The engine's CUDA graph cache: captures, capture ms, replays, and
-    the kernel launches one replay of each segment (k frames from frame
-    f mod 60) makes."""
+    the kernel launches one replay of each segment makes (``k<n>#<i>``:
+    the i-th captured segment of n frames)."""
     g = eng._scan_fn
     names = {"crowd_cuda.launches": "k1", "flowfield_cuda.launches_chunk":
              "k2_chunk", "flowfield_cuda.launches_map": "k2_map"}
-    return dict(g.stats, keys=len(g.launches), launches_per_segment={
-        f"k{k}@{f}": {names[n]: v for n, v in c.items() if v}
-        for (k, f), c in sorted(g.launches.items())})
+    index: dict[int, int] = {}
+    per_segment = {}
+    for (k, _gates), c in g.launches.items():
+        index[k] = index.get(k, -1) + 1
+        per_segment[f"k{k}#{index[k]}"] = {names[n]: v for n, v in c.items()
+                                            if v}
+    return dict(g.stats, keys=len(g.launches),
+                launches_per_segment=per_segment)
 
 
 def war_run(dev, micro: bool):
@@ -1503,7 +1508,7 @@ def phase_economy(dev, n_per_side: int = ECO_PER_SIDE):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    # -- 1. step(60) while tasks live: frame by frame (eager) ----------------
+    # -- 1. step(60) while tasks live: frame by frame (one-frame replays) ----
     # (ms per frame counts the windows that tasks lived through; in the one
     # where the last task ends, the frames after it fuse into graph replays)
     tasks_s, replays0 = [], eng._scan_fn.stats["replays"]
@@ -1512,10 +1517,12 @@ def phase_economy(dev, n_per_side: int = ECO_PER_SIDE):
               f"tasks still live at frame {eng._frame}: "
               f"{[t.name for t in eng.sched.tasks.values()]}")
         replays = eng._scan_fn.stats["replays"]
+        frames = eng.counters["tick.graph_frames"]
         s = synced_call(eng.step, WAR_WINDOW)
         if eng.sched.tasks:
-            check(eng._scan_fn.stats["replays"] == replays,
-                  "no graph replay while tasks live")
+            check(eng._scan_fn.stats["replays"] - replays
+                  == eng.counters["tick.graph_frames"] - frames,
+                  "only one-frame graph segments while tasks live")
             tasks_s.append(s)
     tasks_frames = eng._frame
     check("from" in pause and "to" in pause
@@ -1834,18 +1841,21 @@ def phase_pf(dev):
         probe()
         return s
 
-    # -- 1. pf.step(60) while the task lives: frame by frame (eager) --------
+    # -- 1. pf.step(60) while the task lives: frame by frame (one-frame replays)
     graphs = eng._scan_fn.stats
-    eager, replays0 = [], graphs["replays"]
+    task_s, replays0 = [], graphs["replays"]
     while (not any(k == "entity_death" for k, _ in eng.events)
            or not watch.completed):
         check(eng._frame < WAR_MAX_FRAMES,
               f"no {PF_DEATHS} deaths within {WAR_MAX_FRAMES} frames")
         replays = graphs["replays"]
+        frames = eng.counters["tick.graph_frames"]
         s = step(WAR_WINDOW)
         if not watch.completed:
-            check(graphs["replays"] == replays, "no graph replay while tasks live")
-            eager.append(s)
+            check(graphs["replays"] - replays
+                  == eng.counters["tick.graph_frames"] - frames,
+                  "only one-frame graph segments while tasks live")
+            task_s.append(s)
     task_end = watch.state["ended_at"]
     check(not eng.sched.tasks and task_end <= eng._frame, "the task ended")
     first_death = min(f for f, _ in handled)
@@ -1986,8 +1996,8 @@ def phase_pf(dev):
         spawn_ms_per_entity=1e3 * spawn_s / n_spawned,
         order_ms=[1e3 * s for s in order_s], goals=goals,
         first_death_frame=first_death, task_end_frame=task_end,
-        eager_windows_s=eager,
-        ms_per_frame_eager=1e3 * sum(eager) / (WAR_WINDOW * len(eager)),
+        task_windows_s=task_s,
+        ms_per_frame_task=1e3 * sum(task_s) / (WAR_WINDOW * len(task_s)),
         graphed_windows_s=graphed,
         # the first window captures the segments; the other two replay
         ms_per_frame_graphed=1e3 * sum(graphed[1:]) / (SCAN_WINDOW * 2),
@@ -2008,8 +2018,8 @@ def phase_pf(dev):
         f"entity ({spawn_s:.2f} s), right-click orders ms "
         + ",".join(f"{x:.1f}" for x in res["order_ms"])
         + f"; first death at frame {first_death}, the task ended at frame "
-        f"{task_end}; pf.step({WAR_WINDOW}) eager ms_per_frame="
-        f"{res['ms_per_frame_eager']:.4f} ({len(eager)} windows), graphed "
+        f"{task_end}; pf.step({WAR_WINDOW}) with the task ms_per_frame="
+        f"{res['ms_per_frame_task']:.4f} ({len(task_s)} windows), graphed "
         f"pf.step({SCAN_WINDOW}) ms_per_frame={res['ms_per_frame_graphed']:.4f}"
         f" (the window that captures "
         f"{res['ms_per_frame_capture_window']:.4f})")

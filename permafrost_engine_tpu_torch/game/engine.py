@@ -43,10 +43,12 @@ and session save/load (``core/session.py``).
 
 Micro-batching (``micro_batching``, on by default as in JAX): ``step`` runs
 the frames up to the next host-cadence boundary as one segment, and
-``step_scan`` whole windows. On the card a segment is one CUDA graph
+``step_scan`` whole windows; a frame stepped alone (a remainder, live
+tasks) is a one-frame segment. On the card a segment is one CUDA graph
 replay (``game/graphs.py``), on the CPU its ticks run in turn; both are
 bit-identical to per-frame stepping. ``micro_batching = False`` steps
-frame by frame.
+frame by frame with eager ticks. ``counters["tick.graph_frames"]`` and
+``counters["tick.eager_frames"]`` count the frames stepped each way.
 
 The parts of the engine the ``pf`` script layer calls (``script/pf.py``):
 ``Engine(cfg=None)`` takes ``EngineConfig()``; ``height_at`` (the terrain
@@ -963,12 +965,15 @@ class Engine:
 
     # -- stepping -----------------------------------------------------------------
 
-    def _micro_step_fn(self, k: int):
-        """k-frame stepper threading the same (state, acc) pair as k single
-        ticks: one segment of the scan stepper (a CUDA graph replay on the
-        card). The tick folds its own events into the accumulator, so k
-        fused frames are bit-identical to k per-frame ticks."""
-        return lambda state, acc: self._scan_fn(state, k, acc)
+    def _segment(self, k: int) -> None:
+        """k frames as one segment of the scan stepper, a CUDA graph replay
+        on the card (ticks in turn on the CPU and on a mesh), threading
+        the same (state, acc) pair as k single ticks: the tick folds its
+        own events into the accumulator, so a segment is bit-identical to
+        k per-frame ticks. Counted in ``tick.graph_frames``; a per-frame
+        eager tick counts in ``tick.eager_frames``."""
+        self.state, self._acc = self._scan_fn(self.state, k, self._acc)
+        self.counters["tick.graph_frames"] += k
 
     def _fusible_frames(self) -> int:
         """Frames until the next host-cadence boundary: the largest segment
@@ -1008,10 +1013,11 @@ class Engine:
         With ``micro_batching`` the frames up to the next host-cadence
         boundary (``_fusible_frames``) form one segment, a CUDA graph
         replay on the card; only full cadence segments fuse, and a
-        remainder that `n_frames` cuts short runs frame by frame. Live
-        tasks or a pause force frame-by-frame stepping (the reference's
-        frame-granular semantics, main.c:86-98), re-read every segment so a
-        task that pauses mid-call takes effect at the next frame. While
+        remainder that `n_frames` cuts short runs frame by frame, each
+        frame a one-frame segment (a replay too). Live tasks or a pause
+        force frame-by-frame stepping (the reference's frame-granular
+        semantics, main.c:86-98), re-read every segment so a task that
+        pauses mid-call takes effect at the next frame. While
         paused the frame and the nav commit advance and the host systems
         run, but no tick. The call is the ``Perf`` scope ``step``, each
         segment a frame of ``Perf``'s tree."""
@@ -1032,12 +1038,12 @@ class Engine:
             self._commit_nav()
             if not paused:
                 with self.perf.scope("device_tick"):
-                    if k == 1:
+                    if self.micro_batching:
+                        self._segment(k)
+                    else:
                         self.state, self._acc = self._tick_fn(self.state,
                                                               self._acc)
-                    else:
-                        self.state, self._acc = self._micro_step_fn(k)(
-                            self.state, self._acc)
+                        self.counters["tick.eager_frames"] += 1
                 if self._debug_flag("trace_gpu"):
                     # the reference's GPU timestamp queries made explicit
                     # (perf.h:155-163): time this segment's device
@@ -1104,8 +1110,7 @@ class Engine:
         periods = self._live_periods()
 
         if not periods:
-            self.state, self._acc = self._scan_fn(self.state, n_frames,
-                                                  self._acc)
+            self._segment(n_frames)
             self.flush_deltas()
             self._frame += n_frames
             self.bus.service_queue(self.sim_state)
@@ -1123,7 +1128,7 @@ class Engine:
             n_frames -= align
         while n_frames >= seg:
             self._commit_nav()
-            self.state, self._acc = self._scan_fn(self.state, seg, self._acc)
+            self._segment(seg)
             self._rotate_window()
             self._frame += seg
             n_frames -= seg

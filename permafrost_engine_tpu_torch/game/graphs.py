@@ -6,9 +6,13 @@ On the card a segment of k ticks is one CUDA graph replay instead of k
 ticks of eager launches; on the CPU the same k ticks run in turn.
 
 * **Keys.** The tick's substep gates are Python ``if``s on the host frame,
-  so a graph bakes in which substeps run. A graph is keyed by (k, first
-  frame modulo the cadence period), captured at first use and replayed
-  after; the host frame advances by k on each replay.
+  so a graph bakes in which substeps run, and nothing else of the frame.
+  A graph is keyed by k and the gates its k frames fire (the tick's
+  ``gates(t)``), captured at first use and replayed after; the host frame
+  advances by k on each replay. At the defaults one-frame segments need 7
+  graphs, one per distinct gate tuple, not one per frame of the cadence
+  period, and segments of 30 frames or more as many as (k, first frame
+  modulo the period) tells apart.
 * **Static buffers.** A graph reads and writes the tensors it was captured
   on. Every tensor leaf of the state and of the accumulator has one buffer,
   shared by all graphs. Before a replay, a leaf that host code rebound to
@@ -83,18 +87,24 @@ def _set(roots, path, t: torch.Tensor) -> None:
 
 class TickGraphs:
     """Runs ``(state, n, acc=None) -> (state, acc)``: n ticks of `tick` as
-    one segment (see the module docstring). `period` is the cadence period
-    of the tick's substep gates; `new_acc(device)` makes an empty
-    accumulator when the caller gives none."""
+    one segment (see the module docstring); `tick.gates(t)` gives the
+    substeps it fires at frame t. `period` is the cadence period of those
+    gates; `new_acc(device)` makes an empty accumulator when the caller
+    gives none."""
 
     def __init__(self, tick, period: int, new_acc):
         self.tick, self.period, self.new_acc = tick, period, new_acc
-        self._graphs: dict[tuple[int, int], torch.cuda.CUDAGraph] = {}
+        self._graphs: dict[tuple, torch.cuda.CUDAGraph] = {}
         self._buffers: dict[tuple, torch.Tensor] | None = None
         self._pool = None
         # per key: the launches of each counted kernel in one replay
-        self.launches: dict[tuple[int, int], dict[str, int]] = {}
+        self.launches: dict[tuple, dict[str, int]] = {}
         self.stats = {"captures": 0, "capture_ms": 0.0, "replays": 0}
+
+    def key(self, n: int, tick: int) -> tuple:
+        """The graph key of the n frames after host frame `tick`: n and the
+        substeps each frame fires (the tick's ``gates``)."""
+        return n, tuple(map(self.tick.gates, range(tick + 1, tick + n + 1)))
 
     def __call__(self, state, n: int, acc=None):
         dev = state.ents.pos.device
@@ -111,7 +121,7 @@ class TickGraphs:
                 p: _get((state, acc), p).clone(memory_format=torch.contiguous_format)
                 for p in _leaf_paths(state, acc)}
         self._bind((state, acc))
-        key = (n, state.tick % self.period)
+        key = self.key(n, state.tick)
         if key not in self._graphs:
             state, acc = self._capture(key, state, acc)
         self._graphs[key].replay()

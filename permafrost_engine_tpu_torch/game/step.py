@@ -341,15 +341,20 @@ def fog_substep(cfg: EngineConfig, state: GameState, tile_height=None,
     return state
 
 
+def _substep_periods(cfg: EngineConfig) -> tuple[int, ...]:
+    """Frames between two firings of each substep gate: movement, combat,
+    projectiles (30 Hz), corpses (1 Hz), fog and skinning."""
+    return (FRAME_HZ // cfg.move_hz, FRAME_HZ // cfg.combat_hz,
+            FRAME_HZ // 30, FRAME_HZ, max(FRAME_HZ // cfg.fog_hz, 1),
+            max(FRAME_HZ // cfg.skin_hz, 1))
+
+
 def cadence_period(cfg: EngineConfig) -> int:
     """Frames after which every substep gate repeats: the lcm of the
     substep periods (60 at the defaults). A segment's substeps depend only
     on its length and its first frame modulo this."""
-    periods = [FRAME_HZ // cfg.move_hz, FRAME_HZ // cfg.combat_hz,
-               FRAME_HZ // 30, FRAME_HZ, max(FRAME_HZ // cfg.fog_hz, 1)]
-    if cfg.skin_joints > 0:
-        periods.append(max(FRAME_HZ // cfg.skin_hz, 1))
-    return math.lcm(*periods)
+    periods = _substep_periods(cfg)
+    return math.lcm(*(periods if cfg.skin_joints > 0 else periods[:5]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,35 +388,39 @@ def make_tick(cfg: EngineConfig, tile_height=None, skin_bank=None,
     `tile_height` (f32[TH, TW] on the state's device, or None) makes fog
     height-aware. With `part` (a ``RowPartition``) the movement, blocker
     and fog work is divided over a mesh's ranks; every other substep runs
-    whole on every rank."""
-    move_period = FRAME_HZ // cfg.move_hz
-    combat_period = FRAME_HZ // cfg.combat_hz
-    proj_period = FRAME_HZ // 30
-    corpse_period = FRAME_HZ
-    fog_period = max(FRAME_HZ // cfg.fog_hz, 1)
-    skin_period = max(FRAME_HZ // cfg.skin_hz, 1)
+    whole on every rank. The tick's ``gates(t)`` gives the substeps it
+    fires at frame `t`."""
+    periods = _substep_periods(cfg)
     skins = skin_bank is not None and cfg.skin_joints > 0
+
+    def gates(t: int) -> tuple[bool, ...]:
+        """Which substeps the tick fires at host frame `t` (the frame
+        after its increment): movement, combat, projectiles, corpses, fog,
+        skinning. The tick reads the host frame nowhere else."""
+        fires = tuple(t % p == 0 for p in periods)
+        return fires if skins else fires[:5] + (False,)
 
     def tick(state: GameState, acc: TickDeltas):
         state.tick += 1
-        t = state.tick
         if state.anim is not None:
             state.anim.tick += 1
-        if t % move_period == 0:
+        move, combat, proj, corpse, fog, skin = gates(state.tick)
+        if move:
             state, acc = movement_substep(cfg, state, acc, part)
-        if t % combat_period == 0:
+        if combat:
             state, acc = combat_substep(cfg, state, acc)
-        if t % proj_period == 0:
+        if proj:
             state, acc = proj_ops.projectile_substep(cfg, state, acc)
-        if t % corpse_period == 0:
+        if corpse:
             state, acc, expired = combat_ops.corpse_substep(cfg, state, acc)
             acc.corpse_expired = acc.corpse_expired | expired
-        if t % fog_period == 0:
+        if fog:
             state = fog_substep(cfg, state, tile_height, part)
-        if skins and t % skin_period == 0:
+        if skin:
             state = skin_ops.skin_substep(cfg, skin_bank, state)
         return state, acc
 
+    tick.gates = gates
     return tick
 
 
@@ -421,9 +430,9 @@ def make_tick_scan(cfg: EngineConfig, tile_height=None,
     n frames of ``make_tick``'s tick as ONE segment, returning the state
     and the deltas merged across the window (folded into `acc` in place
     when given, else into a fresh accumulator). On CUDA state a segment is
-    one CUDA graph replay, captured on first use of its (n, first frame
-    modulo ``cadence_period``); on the CPU its ticks run in turn (see
-    ``game/graphs.py``)."""
+    one CUDA graph replay, captured on first use of the substeps its n
+    frames fire (the tick's ``gates``); on the CPU its ticks run in turn
+    (see ``game/graphs.py``)."""
     return TickGraphs(make_tick(cfg, tile_height, skin_bank=skin_bank),
                       cadence_period(cfg),
                       lambda device: empty_deltas(cfg, device=device))

@@ -84,8 +84,9 @@ def const(shape: tuple, dtype: torch.dtype, fill, device) -> torch.Tensor:
 def make_graphs(eng):
     """A fresh one-frame stepper of `eng`'s tick as the engine builds it
     (``game/step.make_tick`` with the engine's tile heights and skin bank)
-    in a ``TickGraphs``: on the card each distinct frame key is captured
-    on first use and replayed after; on the CPU the tick runs."""
+    in a ``TickGraphs``: on the card each distinct set of substeps a frame
+    fires (7 at the defaults) is captured on first use and replayed after;
+    on the CPU the tick runs."""
     from permafrost_engine_tpu_torch.game.graphs import TickGraphs
     from permafrost_engine_tpu_torch.game.step import cadence_period, make_tick
     from permafrost_engine_tpu_torch.state.schema import empty_deltas
