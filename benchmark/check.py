@@ -43,12 +43,27 @@ auction stops at its round cap on these battles and leaves units to a
 greedy fill, so it reads far above an auction's bound (``PERF.md``, open
 questions).
 
-``limits.json`` holds each configuration's limits, set from the readings
-``PERF.md`` gives.
+These are the numbers every cell shares (``NUMBERS``). A generator adds
+its own: ``Cell.recorders()`` gives context managers that ``verify``
+enters beside the ``Recorder`` while the traffic is recorded (they only
+copy, and take their patches off on exit), and ``Cell.judge_extra``
+computes the generator's numbers from what they copied, with reference
+code of its own under ``benchmark/reference/``, once the program's state
+is freed. The entity columns the host rewrote during a recorded call
+(``Cell.host_columns``, the fourth field of a segment) are left out of
+that call's tick comparison; a generator whose host systems rewrite
+columns names them there and compares them in ``judge_extra``.
+
+Each configuration's limits are in ``benchmark/limits/<config>.json``:
+every number a run of its cells must report, shared or a generator's,
+with its limit, set from the readings ``PERF.md`` gives. A configuration
+is added with a limits file of its own, and a generator's number is named
+there and nowhere else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from types import SimpleNamespace
@@ -56,8 +71,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-# entity columns the nav cadence's replans write on the host
-HOST_COLUMNS = ("dest", "flock", "formation_cell", "has_formation_cell")
+# the numbers every cell shares; a generator's own may not take these names
 NUMBERS = ("pos_gap", "hp_gap", "rows_differ", "fog_differ", "palette_gap",
            "field_gap", "dirs_differ", "map_differ", "formation_cells_differ")
 
@@ -100,7 +114,8 @@ class Recorder(_Patches):
     service. The wrappers only copy: each call goes to the program's own
     function with the arguments it was given. ``segments`` collects what
     ``Cell.record`` copies around the timed path's calls: (state before,
-    frames, state after, whether the call ended in the nav cadence)."""
+    frames, state after, the entity columns the host rewrote during the
+    call)."""
 
     def __init__(self):
         super().__init__()
@@ -316,17 +331,18 @@ def _rows_differ(a: SimpleNamespace, b: SimpleNamespace) -> int:
     return 0 if bad is None else int(bad.sum())
 
 
-def compare_frames(prog, ref, host_edited: bool) -> dict:
+def compare_frames(prog, ref, host_columns=()) -> dict:
     """The tick's numbers for one recorded call (see the module
-    docstring). With `host_edited` (the call ended in the nav cadence,
-    whose replans rewrite members' destinations and flocks on the host
-    after the tick) the columns ``HOST_COLUMNS`` are left out."""
-    skip = HOST_COLUMNS if host_edited else ()
+    docstring). The entity columns `host_columns`, which the host rewrote
+    during the call after the tick, are left out: of ``rows_differ``, and
+    of ``pos_gap`` and ``hp_gap`` where they name ``pos`` or ``hp``."""
     ents_p = SimpleNamespace(**{k: v for k, v in vars(prog.ents).items()
-                                if k not in skip})
+                                if k not in host_columns})
     out = {
-        "pos_gap": _gap(prog.ents.pos, ref.ents.pos),
-        "hp_gap": _gap(prog.ents.hp, ref.ents.hp),
+        "pos_gap": (0.0 if "pos" in host_columns
+                    else _gap(prog.ents.pos, ref.ents.pos)),
+        "hp_gap": (0.0 if "hp" in host_columns
+                   else _gap(prog.ents.hp, ref.ents.hp)),
         "rows_differ": (_rows_differ(ents_p, ref.ents)
                         + _rows_differ(prog.projectiles, ref.projectiles)),
         "fog_differ": int((prog.fog.state != ref.fog.state).sum()),
@@ -346,11 +362,11 @@ def judge(rec: Recorder, ref: Reference, lowp: bool = False) -> dict:
     control: the reference in bfloat16 stands where the program's output
     was, and is held against the reference in float32."""
     out: dict = {}
-    for before, n, after, host_edited in rec.segments:
+    for before, n, after, host_columns in rec.segments:
         want = ref.run(before, n)
         if lowp:
             after = ref.run(before, n, lowp=True)
-        out = _worse(out, compare_frames(after, want, host_edited))
+        out = _worse(out, compare_frames(after, want, host_columns))
         del want
     field_gap, dirs_differ = 0.0, 0
     for cost, seeds, seed_cost, max_iters, got in rec.k2:
@@ -388,15 +404,21 @@ def check_start(eng, conf: dict, map_data) -> dict:
 
 
 def verify(cell, frames: int, control: bool = False, log=None):
-    """Record `frames` more frames of `cell`'s traffic, free the program's
-    state and judge them, with the formations its set-up recorded
-    (``cell.formations``): (the program's numbers, the control's numbers
-    or None)."""
+    """Record `frames` more frames of `cell`'s traffic, with the
+    generator's own recorders (``cell.recorders()``) entered beside the
+    ``Recorder``, free the program's state and judge them, with the
+    formations its set-up recorded (``cell.formations``) and the
+    generator's own numbers (``cell.judge_extra``): (the program's numbers,
+    the control's numbers or None). The control reads the shared numbers
+    only."""
     import time
 
     t0 = time.perf_counter()
     rec = Recorder()
-    with rec:
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(rec)
+        for extra in cell.recorders():
+            stack.enter_context(extra)
         cell.record(frames, rec)
     sound = check_start(cell.eng, cell.conf, cell.map_data)
     cell.eng = None
@@ -408,12 +430,19 @@ def verify(cell, frames: int, control: bool = False, log=None):
     forms = cell.formations
     numbers, gain = judge_formations(forms, cell.device)
     sound.update(numbers)
+    own = cell.judge_extra(cell.device)
+    clash = sorted(set(own) & set(NUMBERS))
+    if clash:
+        raise ValueError(f"the generator's own numbers {clash} take the "
+                         "names of shared ones")
+    sound.update(own)
     if log:
         log(f"check: {len(rec.segments)} calls "
             f"({sum(s[1] for s in rec.segments)} frames), {len(rec.k2)} K2 "
             f"launches and {len(rec.dirs)} flow-direction calls recorded in "
             f"{t1 - t0:.2f} s, {len(forms.layouts)} formation layouts and "
-            f"{len(forms.assigns)} assignments in set-up; the reference "
+            f"{len(forms.assigns)} assignments in set-up, "
+            f"{len(own)} numbers of the generator's own; the reference "
             f"took {time.perf_counter() - t1:.2f} s; formation_swap_gain "
             f"{gain} (in 2 eps; not compared)")
     if not control:

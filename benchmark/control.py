@@ -12,8 +12,9 @@ float column of the state held in bfloat16, the nearest precision below
 the configuration's float32, in the program's place (the control: the
 upper reading). One JSON line a seed, then a summary line with each
 number's largest sound reading and smallest control reading. The
+control reads the numbers every cell shares, not a generator's own. The
 benchmark's own runs do not run it; ``PERF.md`` gives its readings and
-the limits in ``limits.json`` set from them.
+the limits in ``benchmark/limits/<config>.json`` set from them.
 """
 
 from __future__ import annotations

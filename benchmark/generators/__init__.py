@@ -16,13 +16,27 @@ parameters and the seed, with
 - ``drive(frames) -> int``: the traffic for at least `frames` frames
   (the traced stretch);
 - ``record(frames, rec)``: the traffic for `frames` frames more,
-  recording each call of the timed path into a ``check.Recorder``;
+  recording each call of the timed path into a ``check.Recorder``: the
+  state handed to it, its frames, the state it hands back and
+  ``host_columns(n)``;
+- ``recorders() -> list``: context managers that ``check.verify`` enters
+  beside the ``Recorder`` while ``record`` runs; they only copy, and take
+  their patches off on exit;
+- ``judge_extra(device) -> dict``: the generator's own numbers, computed
+  after the program's state is freed from what its recorders copied, by
+  reference code under ``benchmark/reference/`` (which imports neither
+  the port nor JAX); each is named in the configuration's limits file;
+- ``host_columns(n) -> tuple``: the entity columns the host rewrote
+  during the call of `n` frames just made, which the tick comparison
+  leaves out of that call (and ``judge_extra`` compares instead);
 - ``eng``, ``conf``, ``map_data``, ``device``, ``wave_log`` and
   ``formations`` (a ``check.FormationRecorder`` of set-up's auctions).
 
 ``contact.Cell`` is all of that for battles marched into contact and kept
-there by reinforcement waves. A generator with other traffic subclasses
-it and extends its hooks: ``prepare()`` (set-up after the march),
-``before_call(n)`` and ``after_call(n)`` (around each call of the
-engine's stepping, inside the timed frame).
+there by reinforcement waves, with no numbers of its own and the nav
+cadence's replanned columns as its host columns. A generator with other
+traffic subclasses it and extends its hooks: ``prepare()`` (set-up after
+the march), ``before_call(n)`` and ``after_call(n)`` (around each call of
+the engine's stepping, inside the timed frame), ``goal(arm)`` (where the
+player's next order goes), and the three of the check above.
 """

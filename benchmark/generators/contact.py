@@ -42,6 +42,9 @@ import torch
 from benchmark import scene
 from benchmark.check import FormationRecorder
 
+# entity columns the nav cadence's replans write on the host
+HOST_COLUMNS = ("dest", "flock", "formation_cell", "has_formation_cell")
+
 
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
@@ -54,7 +57,9 @@ class Cell:
     ``record(frames, rec)``. A generator with other traffic subclasses it
     and extends the hooks: ``prepare()`` (set-up after the march),
     ``before_call(n)`` and ``after_call(n)`` (around each call of the
-    engine's stepping)."""
+    engine's stepping), ``goal(arm)`` (where the player's next order
+    goes); and for the check ``recorders()``, ``judge_extra(device)`` and
+    ``host_columns(n)``."""
 
     def __init__(self, conf: dict, traffic: dict, seed: int, device):
         self.conf, self.traffic = conf, traffic
@@ -168,19 +173,10 @@ class Cell:
     # -- the player's orders -------------------------------------------------------
 
     def _plan_orders(self, o: dict) -> None:
-        """Control groups (one nav layer each, membership from the seed)
-        and each layer's rally points near the front."""
+        """Control groups (``_control_groups``) and each layer's rally
+        points near the front."""
         eng, rng = self.eng, self.rng
-        arms = self.sides[o["side"]]
-        present = [a for a in ("siege", "navy", "air") if arms.get(a)]
-        n_inf = o["groups"] - len(present)
-        groups = []
-        inf = np.asarray(arms["inf"], np.int64)
-        for part in np.array_split(rng.permutation(inf), n_inf):
-            groups.append(("inf", [int(u) for u in part]))
-        for a in present:
-            groups.append((a, list(arms[a])))
-        self.groups = groups
+        self.groups = groups = self._control_groups(o)
         h = eng.ents_host("pos", "alive", "faction")
         live = h["alive"]
         cents = [h["pos"][live & (h["faction"] == s)].mean(0) for s in (0, 1)]
@@ -193,6 +189,21 @@ class Cell:
                                            o["rally_points"])
         # the whole order sequence, fixed by the seed
         self.order_plan = rng.integers(0, o["rally_points"], 1 << 16)
+
+    def _control_groups(self, o: dict) -> list:
+        """Side ``o["side"]``'s army as ``o["groups"]`` control groups of
+        one nav layer each: the infantry split from the seed, then each
+        other arm whole. Returns (arm, uids) pairs."""
+        arms = self.sides[o["side"]]
+        present = [a for a in ("siege", "navy", "air") if arms.get(a)]
+        n_inf = o["groups"] - len(present)
+        groups = []
+        inf = np.asarray(arms["inf"], np.int64)
+        for part in np.array_split(self.rng.permutation(inf), n_inf):
+            groups.append(("inf", [int(u) for u in part]))
+        for a in present:
+            groups.append((a, list(arms[a])))
+        return groups
 
     def _layer_costs(self) -> np.ndarray:
         from benchmark.reference.config import EngineConfig, NUM_LAYERS
@@ -220,13 +231,18 @@ class Cell:
         return xz[self.rng.choice(len(xz), n, replace=False)].astype(
             np.float32)
 
+    def goal(self, arm: str):
+        """The world point the next order sends `arm`'s group to: the
+        plan's next rally point of its layer."""
+        return self.rally[arm][self.order_plan[self.order_count
+                                               % len(self.order_plan)]]
+
     def _order(self) -> None:
-        """The next order of the plan: the next group, whole, to its next
-        rally point; timed from the call to the device's completion."""
+        """The next order of the plan: the next group, whole, to its
+        ``goal``; timed from the call to the device's completion."""
         eng = self.eng
         arm, uids = self.groups[self.order_count % len(self.groups)]
-        goal = self.rally[arm][self.order_plan[self.order_count
-                                               % len(self.order_plan)]]
+        goal = self.goal(arm)
         self.order_count += 1
         uids = [u for u in uids if u in eng.uid_to_slot]
         if not uids:
@@ -325,14 +341,40 @@ class Cell:
         self.frames_since_wave += n
         return n
 
+    # -- the check ----------------------------------------------------------------------
+
+    def recorders(self) -> list:
+        """Context managers that ``check.verify`` enters beside its
+        ``Recorder`` while ``record`` runs, each copying what this
+        generator's own numbers need (``judge_extra``); the cell keeps
+        them. They only copy, and take their patches off on exit. None
+        here."""
+        return []
+
+    def judge_extra(self, device) -> dict:
+        """This generator's own numbers, each computed from what its
+        ``recorders`` copied by reference code under
+        ``benchmark/reference/``, with the program's state freed. Each is
+        named in the configuration's limits file. None here."""
+        return {}
+
+    def host_columns(self, n: int) -> tuple:
+        """The entity columns the host rewrote during the call of `n`
+        frames just made, after the tick: the check leaves them out of
+        that call's tick comparison. The nav cadence's replans rewrite
+        ``HOST_COLUMNS`` on a call that ends in it."""
+        if self.frame % self.eng.seek_refresh_period == 0:
+            return HOST_COLUMNS
+        return ()
+
     def record(self, frames: int, rec) -> None:
         """Go on with the traffic for `frames` frames, recording into
         `rec` (a ``check.Recorder``, entered) each call of the timed path:
-        a copy of the state handed to it and of the state it hands back.
+        a copy of the state handed to it and of the state it hands back,
+        and the columns the host rewrote during it (``host_columns``).
         Scan stepping records calls of ``check_call_frames``."""
         from benchmark.check import clone_tree
 
-        period = self.eng.seek_refresh_period
         held = {}
 
         def around(when, n):
@@ -341,7 +383,7 @@ class Cell:
             else:
                 rec.segments.append((held.pop("before"), n,
                                      clone_tree(self.eng.state),
-                                     self.frame % period == 0))
+                                     self.host_columns(n)))
 
         done = 0
         while done < frames:

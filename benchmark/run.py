@@ -13,14 +13,19 @@ output, one JSON object: ``correct``, ``attempted``, ``failed``,
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
 per-layer metrics, each from its reader in ``benchmark/metrics``),
 ``device``, with ``--trace 1`` ``breakdown``, and last ``checks``: each
-number compared with its limit. The same numbers end standard error.
+number that the configuration's limits file (``benchmark/limits/
+<config>.json``) names, with its limit; a named number that the check
+did not report reads "missing" and makes the run not correct. The same
+numbers end standard error.
 Earlier lines give the card, the set-up split, the synchronized round
 trip at the start and the end (a drift guard, not a metric) and the
 window's counts.
 
 It exits non-zero without a CUDA device (or with fewer than the cell's
-chips), and if a module of ``jax``, ``jaxlib``, ``flax`` or
-``permafrost_engine_tpu`` is loaded once the window has closed.
+chips); before set-up where the configuration has no limits file; where
+the check reports a number that its limits file does not name; and if a
+module of ``jax``, ``jaxlib``, ``flax`` or ``permafrost_engine_tpu`` is
+loaded once the window has closed.
 """
 
 from __future__ import annotations
@@ -45,6 +50,12 @@ for _var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
     os.environ.setdefault(_var, "1")
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "permafrost_engine_tpu")
+# the value in ``checks`` of a limited number that the check did not report
+MISSING = "missing"
+
+
+class RunError(Exception):
+    """A run that cannot give a result; the message says why."""
 
 
 def forbidden_modules() -> list[str]:
@@ -84,10 +95,28 @@ def card_line() -> str:
 
 
 def load_limits(config: str) -> dict:
-    from benchmark.spec import BENCH_DIR
+    """Configuration `config`'s limits: ``benchmark/limits/<config>.json``,
+    each number that decides ``correct`` with its limit."""
+    from benchmark.spec import ROOT, limits_file
 
-    with open(BENCH_DIR / "limits.json") as f:
-        return json.load(f)[config]
+    path = limits_file(config)
+    if not path.exists():
+        raise RunError(f"no limits file {path.relative_to(ROOT)} for "
+                       f"configuration {config!r}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def compare(numbers: dict, limits: dict, config: str) -> dict:
+    """Each limited number beside its limit, in the limits file's order:
+    a number the check did not report reads ``MISSING``. A reported number
+    with no limit stops the run."""
+    unlimited = sorted(set(numbers) - set(limits))
+    if unlimited:
+        raise RunError(f"the check reported {unlimited}, which the limits "
+                       f"file of {config!r} does not name")
+    return {k: {"value": numbers.get(k, MISSING), "limit": v}
+            for k, v in limits.items()}
 
 
 def measure(spec, wl: dict, seed: int, seconds: float, trace: bool,
@@ -100,6 +129,7 @@ def measure(spec, wl: dict, seed: int, seconds: float, trace: bool,
     from benchmark.spec import reader
 
     conf, traffic = spec.config(wl), spec.traffic(wl)
+    limits = load_limits(wl["config"])
     cuda = torch.device(device).type == "cuda"
     rtt_start = rtt_floor(device) if cuda else None
     cell = spec.generator(wl)(conf, traffic, seed, device)
@@ -144,10 +174,9 @@ def measure(spec, wl: dict, seed: int, seconds: float, trace: bool,
     attempted = win["orders_attempted"]
     failed = win["orders_failed"]
     numbers, _ = check.verify(cell, traffic["check_frames"], log=log)
-    limits = load_limits(wl["config"])
-    checks = {k: {"value": numbers[k], "limit": limits[k]}
-              for k in check.NUMBERS if k in numbers}
-    correct = all(v["value"] <= v["limit"] for v in checks.values())
+    checks = compare(numbers, limits, wl["config"])
+    correct = all(v["value"] != MISSING and v["value"] <= v["limit"]
+                  for v in checks.values())
 
     metrics = {}
     for mdef in spec.metrics(wl, trace):
@@ -197,8 +226,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     print("card: " + card_line(), flush=True)
-    return report(spec, wl, args.seed, args.seconds, bool(args.trace),
-                  torch.device("cuda", 0))
+    try:
+        return report(spec, wl, args.seed, args.seconds, bool(args.trace),
+                      torch.device("cuda", 0))
+    except RunError as e:
+        print(f"benchmark: {e}", file=sys.stderr)
+        return 2
 
 
 def report(spec, wl: dict, seed: int, seconds: float, trace: bool,

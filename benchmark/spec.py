@@ -1,18 +1,32 @@
 """``BENCHMARK.json``: loading, the checks of its names and units, and
 finding each piece of a cell by name.
 
-A workload names its configuration and its traffic mix; the files are
-``benchmark/configs/<config>.json`` (named by the configuration entry's
-``file``) and ``benchmark/traffic/<traffic>.json``, a file of parameters
-whose ``generator`` names the module ``benchmark/generators/<name>.py``
-that reads it (its ``Cell``, the interface in
-``benchmark/generators/__init__.py``). A metric's reader is
-``benchmark/metrics/<metric>.py``, whose ``read(m)`` takes the run's
-measurements and returns the value, or None where it finds nothing to
-read; a metric with no file of its own (``frame_ms.combined``) is read by
-the reader of its name without its last suffix (``frame_ms``). A later
-change adds a cell, a mix, a generator or a metric as new files and
-entries; nothing here names one.
+A workload names its configuration and its traffic mix. The files a cell
+resolves to, each found by a name in ``BENCHMARK.json``:
+
+- ``benchmark/configs/<config>.json`` (the configuration entry's
+  ``file``): the configuration's sizes, as run;
+- ``benchmark/limits/<config>.json`` (``limits_file``): the limit of every
+  number that decides ``correct`` for the configuration's cells; a run
+  compares each number named there, and a named number that nothing
+  reported fails it;
+- ``benchmark/traffic/<traffic>.json``: a file of parameters whose
+  ``generator`` names the module ``benchmark/generators/<name>.py`` that
+  reads it (its ``Cell``, the interface in
+  ``benchmark/generators/__init__.py``);
+- ``benchmark/metrics/<metric>.py`` for each metric the cell reports,
+  whose ``read(m)`` takes the run's measurements and returns the value, or
+  None where it finds nothing to read; a metric with no file of its own
+  (``frame_ms.combined``) is read by the reader of its name without its
+  last suffix (``frame_ms``).
+
+So a configuration is added as new files and entries alone: its
+configuration file and its limits file; a traffic file, with a new
+generator (subclassing ``contact.Cell``) only where no generator reads
+its traffic; the plain reference of what the generator's own numbers
+compare, as new modules under ``benchmark/reference/``; and entries in
+``BENCHMARK.json`` for the configuration, its cells and any metric name
+they add. Nothing here names one.
 """
 
 from __future__ import annotations
@@ -136,6 +150,11 @@ def generator(name: str):
     if not name.isidentifier():
         raise ValueError(f"generator {name!r} is not a module name")
     return importlib.import_module(f"benchmark.generators.{name}").Cell
+
+
+def limits_file(config: str) -> Path:
+    """The limits file of configuration `config`."""
+    return BENCH_DIR / "limits" / f"{config}.json"
 
 
 def reader(name: str):

@@ -2,7 +2,8 @@
 control (the reference in bfloat16 in the program's place), and a run
 whose timed path is broken underneath, once for each fault a cell can
 have (a step that returns its state unchanged, half the entities left
-out, an answer altered where it is produced). One chip: no exchange
+out, an answer altered where it is produced: a position in the tick, a
+value of a flow field the order path integrates). One chip: no exchange
 between chips to leave out."""
 
 import pytest
@@ -10,12 +11,14 @@ import torch
 
 from benchmark import run
 from benchmark.generators import contact
-from benchmark.tests.tiny import TinySpec, use_tiny, workload
+from benchmark.tests.tiny import TinySpec, limits, use_tiny, workload
+
 
 def _arm(monkeypatch, fault: str) -> None:
     """Break the program's tick when the window starts."""
     from permafrost_engine_tpu_torch.game import step
-    from permafrost_engine_tpu_torch.ops import projectile, skin
+    from permafrost_engine_tpu_torch.ops import flowfield_cuda, projectile, \
+        skin
 
     real_move = step.movement_substep
 
@@ -40,6 +43,15 @@ def _arm(monkeypatch, fault: str) -> None:
                     getattr(state.ents, k)[rows] = v[rows]
                 return state, deltas
             monkeypatch.setattr(step, "movement_substep", half)
+        elif fault == "field":
+            real_k2 = flowfield_cuda.integrate_plain
+
+            def field(cost, seed_mask, seed_cost=None, **kw):
+                out = real_k2(cost, seed_mask, seed_cost, **kw).clone()
+                reach = torch.nonzero(out < 1e30)
+                out[tuple(reach[-1])] += 1.0
+                return out
+            monkeypatch.setattr(flowfield_cuda, "integrate_plain", field)
         else:
             def altered(cfg, state, deltas, part=None):
                 state, deltas = real_move(cfg, state, deltas, part)
@@ -56,11 +68,15 @@ def _arm(monkeypatch, fault: str) -> None:
     monkeypatch.setattr(contact.Cell, "window", window)
 
 
-@pytest.mark.parametrize("fault", ["unchanged", "half", "alter"])
-def test_a_broken_timed_path_is_not_correct(monkeypatch, fault):
+@pytest.mark.parametrize("fault,kind", [
+    pytest.param("unchanged", "scan", id="unchanged"),
+    pytest.param("half", "scan", id="half"),
+    pytest.param("alter", "scan", id="alter"),
+    pytest.param("field", "coldorders", id="field")])
+def test_a_broken_timed_path_is_not_correct(monkeypatch, fault, kind):
     use_tiny(monkeypatch)
     _arm(monkeypatch, fault)
-    out = run.measure(TinySpec(), workload("scan"), seed=987654321,
+    out = run.measure(TinySpec(), workload(kind), seed=987654321,
                       seconds=0.5, trace=False, device="cpu", t_start=0.0,
                       log=lambda s: None)
     assert out["correct"] is False, out["checks"]
@@ -74,6 +90,7 @@ def test_the_control_is_not_correct(monkeypatch):
     use_tiny(monkeypatch)
     r = readings(TinySpec(), workload("frame"), seed=4242424242,
                  seconds=0.5, device="cpu")
-    limits = run.load_limits("battle10k_combined")
-    assert all(v <= limits[k] for k, v in r["sound"].items()), r["sound"]
-    assert any(v > limits[k] for k, v in r["control"].items()), r["control"]
+    lim = limits()
+    assert set(r["sound"]) == set(lim), r["sound"]
+    assert all(v <= lim[k] for k, v in r["sound"].items()), r["sound"]
+    assert any(v > lim[k] for k, v in r["control"].items()), r["control"]

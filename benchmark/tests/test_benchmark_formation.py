@@ -9,6 +9,9 @@ import pytest
 from benchmark import check, run, scene
 from benchmark.tests.tiny import CONF, use_tiny
 
+# the limits of the configuration whose cells make formations
+LIMITS = run.load_limits("battle10k_combined")
+
 
 @pytest.fixture
 def recorded(monkeypatch):
@@ -29,14 +32,12 @@ def recorded(monkeypatch):
 def test_a_sound_formation_is_within_the_limits(recorded):
     """At this size the auction converges: within its 2 eps."""
     assert recorded.layouts and recorded.assigns
-    limits = run.load_limits("battle10k_combined")
     got, gain = check.judge_formations(recorded, "cpu")
-    assert got["formation_cells_differ"] <= limits["formation_cells_differ"]
+    assert got["formation_cells_differ"] <= LIMITS["formation_cells_differ"]
     assert 0.0 <= gain <= 1.0, gain
 
 
 def test_a_moved_cell_and_a_worse_assignment_are_caught(recorded):
-    limits = run.load_limits("battle10k_combined")
     units_pos, cells, assign = recorded.assigns[0]
     # the unit nearest each cell given the farthest one
     order = np.argsort(((units_pos[:, None] - cells[assign][None]) ** 2)
@@ -49,11 +50,10 @@ def test_a_moved_cell_and_a_worse_assignment_are_caught(recorded):
     layout[-1][0, 0] += 0.5
     recorded.layouts[0] = tuple(layout)
     got, gain = check.judge_formations(recorded, "cpu")
-    assert got["formation_cells_differ"] > limits["formation_cells_differ"]
+    assert got["formation_cells_differ"] > LIMITS["formation_cells_differ"]
     assert gain > 1.0
 
 
 def test_the_formation_control_is_not_correct(recorded):
-    limits = run.load_limits("battle10k_combined")
     got, _ = check.judge_formations(recorded, "cpu", lowp=True)
-    assert got["formation_cells_differ"] > limits["formation_cells_differ"]
+    assert got["formation_cells_differ"] > LIMITS["formation_cells_differ"]

@@ -11,12 +11,12 @@ from benchmark.tests.tiny import TinySpec, use_tiny, workload
 KEYS = {"correct", "attempted", "failed", "metrics", "device", "checks"}
 
 
-@pytest.mark.parametrize("stepping,trace", [("scan", 0), ("frame", 0),
-                                            ("frame", 1)])
-def test_a_cpu_run_prints_one_result_line(monkeypatch, capsys, stepping,
+@pytest.mark.parametrize("kind,trace", [("scan", 0), ("frame", 0),
+                                            ("frame", 1), ("coldorders", 1)])
+def test_a_cpu_run_prints_one_result_line(monkeypatch, capsys, kind,
                                           trace):
     use_tiny(monkeypatch)
-    rc = run.report(TinySpec(), workload(stepping), seed=2 ** 31 + 12345,
+    rc = run.report(TinySpec(), workload(kind), seed=2 ** 31 + 12345,
                     seconds=0.5, trace=bool(trace), device="cpu")
     assert rc == 0
     out = capsys.readouterr()
@@ -28,10 +28,13 @@ def test_a_cpu_run_prints_one_result_line(monkeypatch, capsys, stepping,
     for name, v in last["checks"].items():
         assert f"check {name}:" in out.err
     assert out.err.strip().splitlines()[-1].startswith("check ")
-    if stepping == "frame" and not trace:
+    if kind == "frame" and not trace:
         assert {"frame_ms", "frame_ms_p99", "order_ms_mean",
                 "setup_s"} <= set(last["metrics"])
         assert last["attempted"] > 0
+    if kind == "coldorders":
+        assert {"order_ms_mean.cold", "field_cache_hit_pct.cold",
+                "frame_ms.cold"} <= set(last["metrics"])
 
 
 def test_forbidden_modules_compare_whole_top_level_names(monkeypatch):

@@ -1,13 +1,16 @@
-"""BENCHMARK.json: every workload resolves to its files, every metric to
-its reader, and names or units outside the allowed characters are
-refused."""
+"""BENCHMARK.json: every workload resolves to its files (configuration,
+limits, traffic, generator), every metric to its reader, every generator
+to a traffic file that names it, and names or units outside the allowed
+characters are refused."""
 
 import copy
 import json
 
 import pytest
 
-from benchmark.spec import BENCH_DIR, ROOT, Spec, reader, validate
+from benchmark.generators import contact
+from benchmark.spec import (BENCH_DIR, ROOT, Spec, generator, limits_file,
+                            reader, validate)
 
 
 def test_every_workload_resolves_to_its_files():
@@ -16,6 +19,7 @@ def test_every_workload_resolves_to_its_files():
         conf = spec.config(wl)
         assert conf["name"] == wl["config"]
         assert conf["reduced"] == spec.configs[wl["config"]]["reduced"]
+        assert json.loads(limits_file(wl["config"]).read_text())
         tr = spec.traffic(wl)
         assert tr["stepping"] in ("scan", "frame")
         assert callable(spec.generator(wl))
@@ -26,6 +30,15 @@ def test_every_workload_resolves_to_its_files():
                 assert callable(reader(m["name"]))
         names = {m["name"] for m in spec.metrics(wl, False)}
         assert "setup_s" in names and len(names) >= 2
+    # every generator reads some traffic file, and every traffic file's
+    # generator resolves to a cell of the interface
+    named = set()
+    for path in sorted((BENCH_DIR / "traffic").glob("*.json")):
+        tr = json.loads(path.read_text())
+        assert issubclass(generator(tr["generator"]), contact.Cell), path
+        named.add(tr["generator"])
+    mods = {p.stem for p in (BENCH_DIR / "generators").glob("*.py")}
+    assert mods - {"__init__"} == named
 
 
 def test_per_layer_moves_a_metric_of_each_of_its_cells():
