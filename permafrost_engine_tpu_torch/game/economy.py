@@ -201,13 +201,13 @@ class Economy:
         h = self.harvesters[uid]
         h.state = HarvesterState.TO_RESOURCE
         h.target_resource = resource_uid
-        self.engine.move([uid], tuple(self.engine.pos_of(resource_uid)))
+        self._move_to(uid, resource_uid)
 
     def drop_off(self, uid: int, storage_uid: int) -> None:
         h = self.harvesters[uid]
         h.state = HarvesterState.TO_STORAGE
         h.target_storage = storage_uid
-        self.engine.move([uid], tuple(self.engine.pos_of(storage_uid)))
+        self._move_to(uid, storage_uid)
 
     def transport_resources(self, uid: int, storage_uid: int) -> bool:
         """Saturate `storage_uid` toward its desired stockpiles
@@ -242,10 +242,35 @@ class Economy:
         h.res_name = rname
         self._transport_assigned[storage_uid] = \
             self._transport_assigned.get(storage_uid, 0) + 1
-        self.engine.move([uid], tuple(self.engine.pos_of(src)))
+        self._move_to(uid, src)
         self.engine.bus.notify(EventType.TRANSPORT_TARGET_ACQUIRED,
                                {"uid": uid, "storage": storage_uid})
         return True
+
+    # -- the orders the economy gives -------------------------------------------
+
+    def _move(self, uids: list[int], goal_xz=None, *,
+              to: int | None = None) -> None:
+        """``Engine.move`` as the ``Perf`` scope ``economy.order``, counted
+        in ``counters["economy.moves"]``; with `to`, the goal is where that
+        entity stands, read inside the scope."""
+        e = self.engine
+        with e.perf.scope("economy.order"):
+            e.counters["economy.moves"] += 1
+            e.move(uids, goal_xz if to is None else tuple(e.pos_of(to)))
+
+    def _move_to(self, uid: int, target_uid: int) -> None:
+        """Send `uid` to where `target_uid` stands: one ``Engine.move`` of
+        one unit, so one flock a trip (upstream's G_Move_SetDest)."""
+        self._move([uid], to=target_uid)
+
+    def _stop(self, uid: int) -> None:
+        """``Engine.stop`` of one unit as the scope ``economy.order``,
+        counted in ``counters["economy.stops"]``."""
+        e = self.engine
+        with e.perf.scope("economy.order"):
+            e.counters["economy.stops"] += 1
+            e.stop([uid])
 
     def set_strategy(self, uid: int, strat: GatherStrategy) -> None:
         self.harvesters[uid].strategy = GatherStrategy(strat)
@@ -351,7 +376,7 @@ class Economy:
         b = self.builders[uid]
         b.target_building = building_uid
         b.building = False
-        self.engine.move([uid], tuple(self.engine.pos_of(building_uid)))
+        self._move_to(uid, building_uid)
 
     def found_building(self, building_uid: int) -> None:
         b = self.buildings[building_uid]
@@ -380,7 +405,7 @@ class Economy:
             return False
         d = np.linalg.norm(self.engine.pos_of(uid) - self.engine.pos_of(holder_uid))
         if d > _NEAR * 2:
-            self.engine.move([uid], tuple(self.engine.pos_of(holder_uid)))
+            self._move_to(uid, holder_uid)
             return False
         g.held.append(uid)
         self.engine.set_flags([uid], set_mask=int(EntityFlags.GARRISONED)
@@ -423,7 +448,7 @@ class Economy:
                     elif self.garrison(u, transporter_uid):
                         state["pending"].remove(u)
                 yield Sleep(10)
-            eng.move([transporter_uid], dest_xz)
+            self._move([transporter_uid], dest_xz)
             while True:
                 d = np.linalg.norm(eng.pos_of(transporter_uid)
                                    - np.asarray(dest_xz))
@@ -437,18 +462,26 @@ class Economy:
     # -- the economy tick --------------------------------------------------------
 
     def tick(self) -> None:
-        # ONE host copy of the entity columns the tick reads, taken at its
-        # start (one device sync on the card); per-pair reads would each
-        # sync the device and go quadratic at scale. The orders the tick
-        # issues change none of the columns it reads.
-        self._host = self.engine.ents_host(*_TICK_COLUMNS)
-        try:
-            self._tick_harvesters()
-            self._tick_builders()
-            self._tick_automation()
-            self._tick_replenish()
-        finally:
-            self._host = None
+        """One economy tick: the ``Perf`` scope ``economy``, with the parts
+        ``economy.harvest``, ``economy.build`` and ``economy.automation``;
+        its orders are ``economy.order`` scopes inside them."""
+        perf = self.engine.perf
+        with perf.scope("economy", owner=True):
+            # ONE host copy of the entity columns the tick reads, taken at
+            # its start (one device sync on the card); per-pair reads would
+            # each sync the device and go quadratic at scale. The orders the
+            # tick issues change none of the columns it reads.
+            self._host = self.engine.ents_host(*_TICK_COLUMNS)
+            try:
+                with perf.scope("economy.harvest"):
+                    self._tick_harvesters()
+                with perf.scope("economy.build"):
+                    self._tick_builders()
+                with perf.scope("economy.automation"):
+                    self._tick_automation()
+                self._tick_replenish()
+            finally:
+                self._host = None
 
     def _ents(self, *names: str) -> dict:
         """Host arrays of entity columns: the tick's copy inside
@@ -500,7 +533,7 @@ class Economy:
                     h.state = HarvesterState.IDLE
                     continue
                 if self._near(uid, h.target_resource):
-                    e.stop([uid])
+                    self._stop(uid)
                     h.state = HarvesterState.HARVESTING
             elif h.state == HarvesterState.HARVESTING:
                 res = self.resources.get(h.target_resource)
@@ -530,7 +563,7 @@ class Economy:
                     self._clear_transport(h)
                     continue
                 if self._near(uid, h.target_storage):
-                    e.stop([uid])
+                    self._stop(uid)
                     for name, amt in list(h.carried.items()):
                         room = s.capacity.get(name, 0) - s.stored.get(name, 0)
                         put = max(0, min(room, amt))
@@ -568,7 +601,7 @@ class Economy:
             return
         if not self._near(uid, h.transport_src):
             return
-        e.stop([uid])
+        self._stop(uid)
         stored = src.stored.get(rname, 0)
         desired = src.desired.get(rname, 0)
         cap_left = h.max_carry.get(rname, 10) - h.carried.get(rname, 0)
@@ -595,7 +628,7 @@ class Economy:
                                          h.strategy)
             if nxt >= 0 and nxt != h.transport_src:
                 h.transport_src = nxt
-                e.move([uid], tuple(e.pos_of(nxt)))
+                self._move_to(uid, nxt)
                 return
         if carried == 0:
             self._clear_transport(h)
@@ -603,7 +636,7 @@ class Economy:
             return
         h.state = HarvesterState.TO_STORAGE
         h.target_storage = h.transport_dest
-        e.move([uid], tuple(e.pos_of(h.transport_dest)))
+        self._move_to(uid, h.transport_dest)
 
     def _head_to_storage_or_idle(self, uid: int, h: HarvesterComp) -> None:
         carried_names = [k for k, v in h.carried.items() if v > 0]
@@ -632,7 +665,7 @@ class Economy:
                 continue
             if not b.building:
                 if self._near(uid, b.target_building):
-                    e.stop([uid])
+                    self._stop(uid)
                     b.building = True
             if b.building and bc.state == BuildingState.SUPPLIED:
                 bc.progress = min(1.0, bc.progress + b.build_speed)

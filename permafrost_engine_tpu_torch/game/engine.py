@@ -365,12 +365,16 @@ class Engine:
 
     def _commit_nav(self) -> None:
         """Apply pending structure stamps and replan the flocks whose path
-        crosses a dirty chunk; with nothing pending, a host-only no-op."""
-        state, dirty = self.nav.commit_structures(self.state)
-        if dirty is not None:
-            self.state = state
+        crosses a dirty chunk; with nothing pending, a host-only no-op. A
+        commit is the ``Perf`` scope ``nav.commit``, its replans the part
+        ``nav.replan``, its device fetches ``nav.commit.fetch`` waits."""
+        if not self.nav.structures_pending():
+            return
+        with self.perf.scope("nav.commit", owner=True):
+            self.state, dirty = self.nav.commit_structures(self.state)
             self._nav_version += 1        # cost edits invalidate seek fields
-            self._replan_flocks(dirty)
+            with self.perf.scope("nav.replan"):
+                self._replan_flocks(dirty)
 
     def _goal_chunk_hood(self, fid: int) -> set[int]:
         """The flock's goal chunk, where its own crowd parks."""
@@ -675,14 +679,19 @@ class Engine:
 
     def _reclaim_flocks(self) -> None:
         """Free active flocks no living entity references (the reference
-        deletes empty flocks, movement.c make_flocks)."""
+        deletes empty flocks, movement.c make_flocks). Counted in
+        ``counters["flocks.reclaims"]``; ``counters["flocks.peak"]`` keeps
+        the most flocks living entities still held at a reclaim."""
         e, fl = self.state.ents, self.state.flocks
         members = torch.where(e.alive, e.flock, -1)
         counts = self.perf.fetch(torch.bincount(
             members[members >= 0].long(), minlength=self.cfg.max_flocks))
         active = self.perf.fetch(fl.active)
-        freed = [f for f in range(self.cfg.max_flocks)
-                 if active[f] and counts[f] == 0]
+        held = active & (counts[:self.cfg.max_flocks] > 0)
+        self.counters["flocks.reclaims"] += 1
+        self.counters["flocks.peak"] = max(self.counters["flocks.peak"],
+                                           int(held.sum()))
+        freed = np.flatnonzero(active & ~held).tolist()
         if not freed:
             return
         idx = torch.as_tensor(freed, dtype=torch.long, device=self.device)

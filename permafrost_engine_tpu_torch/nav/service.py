@@ -232,6 +232,10 @@ class NavService:
                             min(cfg.field_w - 1, c1 + m) // FIELD_RES + 1):
                 self._pending_dirty.add(self._chunk_idx(cr, cc))
 
+    def structures_pending(self) -> bool:
+        """Whether structure stamps wait for ``commit_structures``."""
+        return bool(self._pending_dirty)
+
     def commit_structures(self, state: GameState
                           ) -> tuple[GameState, set[int] | None]:
         """Apply the pending structure stamps: recompute the effective

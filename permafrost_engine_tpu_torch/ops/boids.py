@@ -28,6 +28,10 @@ from permafrost_engine_tpu_torch.core.config import (
 )
 
 _EPS = 1e-6
+# the cohesion stage scatters into its dense (flock, cell) table while the
+# table has at most this many rows per unit, and sorts the units' keys
+# beyond (``_cohesion_rows_for``)
+_DENSE_ROWS_PER_UNIT = 64
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
@@ -100,6 +104,60 @@ def _box_sum(g: torch.Tensor, dim: int, box: int) -> torch.Tensor:
     return out
 
 
+def _cohesion_rows_dense(key, vals, r, c, *, cells_r, cells_c, max_flocks,
+                         box: int):
+    """Each row's box-filtered (flock, cell) sums from the dense table:
+    every (flock, cell) sum scattered into an i32[max_flocks, cells, 5]
+    table, box-summed over rows then columns, one row gathered a unit."""
+    num_cells = cells_r * cells_c
+    sums = torch.zeros((max_flocks * num_cells + 1, 5), dtype=torch.int32,
+                       device=vals.device)
+    sums.index_add_(0, key, vals)
+    g = sums[:-1].reshape(max_flocks, cells_r, cells_c, 5)
+    g = _box_sum(_box_sum(g, 1, box), 2, box)
+    flat = g.reshape(max_flocks * num_cells, 5)
+    return flat[torch.clamp(key, max=max_flocks * num_cells - 1)]
+
+
+def _cohesion_rows_sorted(key, vals, r, c, *, cells_r, cells_c, max_flocks,
+                          box: int):
+    """``_cohesion_rows_dense``'s rows from the units alone: the (flock,
+    cell) keys sorted, exact i64 prefix sums of the values in that order,
+    and for each unit, each of the box's rows of cells is one run of keys
+    (its flock's, that cell row's, the box's columns clipped to the map),
+    found by binary search; its sum is the difference of two prefix sums.
+    Integer sums are order-free, so the rows equal the dense table's bit
+    for bit, at a cost that follows the units, not the table."""
+    half = box // 2
+    dev = vals.device
+    r, c = r.long(), c.long()
+    skey, order = torch.sort(key)
+    # the prefix sums run along the inner dimension, one row a column: a
+    # scan along the outer dimension takes one thread a column on the card
+    cols = vals[order].to(torch.int64).t().contiguous()
+    csum = torch.cat([torch.zeros((5, 1), dtype=torch.int64, device=dev),
+                      torch.cumsum(cols, 1)], 1).t()
+    base = (key - r * cells_c - c)[:, None]           # the flock's first key
+    rows = r[:, None] + torch.arange(-half, half + 1, device=dev)
+    inside = (rows >= 0) & (rows < cells_r)
+    rows = torch.clamp(rows, 0, cells_r - 1) * cells_c
+    c_lo = torch.clamp(c - half, min=0)[:, None]
+    c_hi = torch.clamp(c + half, max=cells_c - 1)[:, None]
+    lo = torch.searchsorted(skey, base + rows + c_lo)
+    hi = torch.searchsorted(skey, base + rows + c_hi, right=True)
+    run = torch.where(inside[..., None], csum[hi] - csum[lo], 0)
+    return run.sum(1).to(torch.int32)
+
+
+def _cohesion_rows_for(max_flocks: int, num_cells: int, n: int):
+    """The form of the cohesion stage's rows for `n` units: the dense
+    table while it has at most ``_DENSE_ROWS_PER_UNIT`` rows a unit, the
+    sorted keys beyond."""
+    return (_cohesion_rows_dense
+            if max_flocks * num_cells <= _DENSE_ROWS_PER_UNIT * n
+            else _cohesion_rows_sorted)
+
+
 def flock_cohesion_centroids(pos, flock, mask, *, cells_r, cells_c,
                              cell_size, max_flocks, box: int = 7):
     """Per-entity same-flock centroid via fixed-point integer per-(flock,
@@ -107,6 +165,16 @@ def flock_cohesion_centroids(pos, flock, mask, *, cells_r, cells_c,
     scale is the code's, 2^(22 - ceil(log2 extent)): 1/2048 u at the
     default 1024 u world (the JAX docstring's 1/4096 is wrong). Returns
     (centroid f32[N,2], own position where alone; cnt f32[N])."""
+    rows = _cohesion_rows_for(max_flocks, cells_r * cells_c, pos.shape[0])
+    return _cohesion_centroids(pos, flock, mask, rows, cells_r=cells_r,
+                               cells_c=cells_c, cell_size=cell_size,
+                               max_flocks=max_flocks, box=box)
+
+
+def _cohesion_centroids(pos, flock, mask, rows, *, cells_r, cells_c,
+                        cell_size, max_flocks, box: int):
+    """``flock_cohesion_centroids`` with its box-filtered rows taken by
+    `rows` (``_cohesion_rows_dense`` or ``_cohesion_rows_sorted``)."""
     num_cells = cells_r * cells_c
     dev = pos.device
     c = torch.clamp((pos[:, 0] / cell_size).to(torch.int32), 0, cells_c - 1)
@@ -125,13 +193,8 @@ def flock_cohesion_centroids(pos, flock, mask, *, cells_r, cells_c,
     q, rem = item >> 11, item & 2047
     one = torch.ones((pos.shape[0], 1), dtype=torch.int32, device=dev)
     vals = torch.where(ok[:, None], torch.cat([q, rem, one], dim=1), 0)
-    sums = torch.zeros((max_flocks * num_cells + 1, 5), dtype=torch.int32,
-                       device=dev)
-    sums.index_add_(0, idx.long(), vals)
-    g = sums[:-1].reshape(max_flocks, cells_r, cells_c, 5)
-    g = _box_sum(_box_sum(g, 1, box), 2, box)
-    flat = g.reshape(max_flocks * num_cells, 5)
-    row = flat[torch.where(ok, f * num_cells + cell, 0).long()]
+    row = rows(idx.long(), vals, r, c, cells_r=cells_r, cells_c=cells_c,
+               max_flocks=max_flocks, box=box)
     pos_sum = (row[:, 0:2].to(torch.float32) * 2048.0
                + row[:, 2:4].to(torch.float32)) / scale
     cnt = torch.where(ok, (row[:, 4] - 1).to(torch.float32), 0.0)

@@ -316,9 +316,20 @@ def test_tick_is_capturable(monkeypatch):
     CUDA graph capture would refuse (after a warm-up that builds the
     per-device constants, as the graph cache does). K1 stands opaque, as
     its kernel launch is on the card; its plain version is not audited."""
+    _assert_capturable(monkeypatch, max_flocks=4)
+
+
+def test_tick_is_capturable_at_1024_flocks(monkeypatch):
+    """``test_tick_is_capturable`` with a flock table of 1,024 rows, where
+    the cohesion stage sorts the units' (flock, cell) keys instead of
+    filling its dense table."""
+    _assert_capturable(monkeypatch, max_flocks=1024)
+
+
+def _assert_capturable(monkeypatch, max_flocks: int) -> None:
     cfg = EngineConfig(max_ents=48, chunks_r=1, chunks_c=2, num_layers=2,
-                       max_flocks=4, max_projectiles=16, field_slab_slots=8,
-                       los_slab_slots=8, skin_joints=12)
+                       max_flocks=max_flocks, max_projectiles=16,
+                       field_slab_slots=8, los_slab_slots=8, skin_joints=12)
     eng = Engine(_tcfg(cfg), device="cpu")
     eng.add_faction(0)
     eng.add_faction(1)

@@ -196,3 +196,62 @@ def test_prev_frame_perfstats_names_the_frame():
     cad = names.index("cadence")
     assert stats[cad]["parent"] == host
     assert "step" not in names and "order" not in names
+
+
+def test_economy_scopes_and_flock_counters():
+    """A small economy run: every economy tick is the scope ``economy``
+    with its three parts, each order it gives an ``economy.order`` (counted
+    as ``economy.moves`` or ``economy.stops``), a founded building's
+    commit ``nav.commit`` with its ``nav.replan``; a full flock table
+    reclaims (``flocks.reclaims``) and keeps its high-water mark
+    (``flocks.peak``)."""
+    from permafrost_engine_tpu_torch.core.config import EntityFlags
+    from permafrost_engine_tpu_torch.game.economy import (
+        BuilderComp, BuildingComp, HarvesterComp, ResourceComp, StorageComp)
+
+    cfg = EngineConfig(max_ents=32, chunks_r=1, chunks_c=1, num_layers=1,
+                       max_flocks=4, max_projectiles=8, field_slab_slots=16,
+                       los_slab_slots=16)
+    eng = Engine(cfg, device="cpu")
+    eng.add_faction(0)
+    eco = eng.economy
+    static = int(EntityFlags.COLLISION | EntityFlags.SELECTABLE)
+    store = eng.spawn_batch(np.array([[60.0, 60.0]], np.float32), radius=3.0,
+                            flags=static, max_speed=0.0)[0]
+    eco.storages[store] = StorageComp(capacity={"gold": 100})
+    for u in eng.spawn_batch(np.array([[80.0, 60.0], [60.0, 84.0]],
+                                      np.float32), radius=2.0, flags=static,
+                             max_speed=0.0):
+        eco.resources[u] = ResourceComp("gold", 100, 100)
+    for u in eng.spawn_batch(np.array([[66.0, 62.0], [64.0, 70.0],
+                                       [68.0, 66.0], [62.0, 66.0]],
+                                      np.float32), max_speed=20.0):
+        eco.harvesters[u] = HarvesterComp(gather_speeds={"gold": 1},
+                                          max_carry={"gold": 2})
+    site = eng.spawn_batch(np.array([[100.0, 100.0]], np.float32),
+                           radius=4.0, flags=static, max_speed=0.0)[0]
+    builder = eng.spawn_batch(np.array([[90.0, 96.0]], np.float32),
+                              max_speed=20.0)[0]
+    eco.buildings[site] = BuildingComp(required={"gold": 1})
+    eco.builders[builder] = BuilderComp()
+    eco.build(builder, site)
+    c0 = dict(eng.counters)
+    for _ in range(240):
+        eng.step(1)
+        if eco.builders[builder].building and site not in eng._structures:
+            eco.found_building(site)
+            eco.supply_building(site, "gold", 1)
+    c = eng.counters
+    ticks = _delta(c, c0, "economy.n")
+    assert ticks == 20
+    for part in ("harvest", "build", "automation"):
+        assert _delta(c, c0, f"economy.{part}.n") == ticks
+    assert _delta(c, c0, "economy.moves") >= 4
+    assert _delta(c, c0, "economy.stops") >= 4
+    assert _delta(c, c0, "economy.order.n") == _delta(
+        c, c0, "economy.moves") + _delta(c, c0, "economy.stops")
+    assert _delta(c, c0, "economy.ms") > _delta(c, c0, "economy.order.ms")
+    assert _delta(c, c0, "nav.commit.n") == 1
+    assert _delta(c, c0, "nav.replan.n") == 1
+    assert c["flocks.reclaims"] >= 1
+    assert 1 <= c["flocks.peak"] <= cfg.max_flocks
