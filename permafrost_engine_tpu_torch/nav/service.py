@@ -58,7 +58,7 @@ from permafrost_engine_tpu_torch.core.perf import Perf
 from permafrost_engine_tpu_torch.nav import portals as pt
 from permafrost_engine_tpu_torch.ops import flowfield as ff
 from permafrost_engine_tpu_torch.ops.flowfield_cuda import integrate
-from permafrost_engine_tpu_torch.ops.islands import label_islands
+from permafrost_engine_tpu_torch.ops.islands import label_islands_host
 from permafrost_engine_tpu_torch.state.schema import GameState
 
 
@@ -153,11 +153,12 @@ class NavService:
         return self._graphs[layer]
 
     def islands(self, layer: int) -> np.ndarray:
-        """Global island ids for a layer (host mirror, built on demand —
-        ref: n_update_components, nav.c:655)."""
+        """Global island ids for a layer, built on demand from the host
+        costs (ref: n_update_components, nav.c:655); each labelling is the
+        ``Perf`` scope ``nav.islands``."""
         if layer not in self._islands:
-            cost = torch.from_numpy(self.cost_base[layer]).to(self.device)
-            self._islands[layer] = self.perf.fetch(label_islands(cost))
+            with self.perf.scope("nav.islands"):
+                self._islands[layer] = label_islands_host(self.cost_base[layer])
         return self._islands[layer]
 
     def invalidate_layer(self, layer: int) -> None:

@@ -10,9 +10,10 @@ of each window ride along (``ops/flowfield_cuda``; 0 on the CPU, where no
 kernel launches), the segment graphs it captured (their count and ms: a
 window that meets new segment keys pays their captures), and the split of
 each structure commit, synchronized: the effective-cost recompute, the
-incremental portal relink, the field invalidation and the replans
-(``commit_split``; the islands are relabelled lazily, at the next path
-request).
+incremental portal relink, the field invalidation, the replans and,
+inside them, the islands relabelled (``commit_split``; a commit drops the
+islands of the ground and water layers, and the replans' first path
+request on a layer labels it anew).
 
 Port of ``tools/probe_extend.py``: ``bench.build_battle(terrain=True)``,
 ``step(60)``, the fast-forward to the first death, ``step_scan(300)``,
@@ -47,14 +48,18 @@ def commit_split(eng, ms: dict):
     """Time, synchronized, each structure commit (``Engine._commit_nav``
     with stamps pending) and its parts: the effective-cost recompute, the
     incremental portal relink (``portals.update_portal_graph``), the
-    invalidation of the dirty chunks' fields and the flocks' replans,
-    adding ms to `ms`. A commit with nothing pending runs untimed (no
-    synchronize), so the window's other frames are not slowed."""
+    invalidation of the dirty chunks' fields, the flocks' replans and the
+    islands labelled inside the commit (``NavService.islands`` of a layer
+    not cached; part of the replans), adding ms to `ms` and the number of
+    labellings to ``ms["islands_n"]``. A commit with nothing pending runs
+    untimed (no synchronize), so the window's other frames are not
+    slowed."""
     nav = eng.nav
     parts = ((nav, "_recompute_effective", "recompute"),
              (pt, "update_portal_graph", "portal_relink"),
              (nav, "_invalidate_chunk_fields", "invalidate"),
              (eng, "_replan_flocks", "replan"))
+    in_commit = [False]
 
     def timed(key, fn):
         def run(*args, **kw):
@@ -67,11 +72,27 @@ def commit_split(eng, ms: dict):
                 ms[key] = ms.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
         return run
 
+    def in_a_commit():
+        in_commit[0] = True
+        try:
+            return timed_commit()
+        finally:
+            in_commit[0] = False
+
+    def islands(layer):
+        if not in_commit[0] or layer in nav._islands:
+            return labels(layer)
+        ms["islands_n"] = ms.get("islands_n", 0) + 1
+        return timed_labels(layer)
+
     commit = eng._commit_nav
     timed_commit = timed("commit", commit)
+    labels = nav.islands
+    timed_labels = timed("islands", labels)
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in parts]
-    eng._commit_nav = lambda: (timed_commit() if nav._pending_dirty
+    eng._commit_nav = lambda: (in_a_commit() if nav._pending_dirty
                                else commit())
+    nav.islands = islands
     for obj, attr, key in parts:
         setattr(obj, attr, timed(key, getattr(obj, attr)))
     try:
@@ -83,6 +104,7 @@ def commit_split(eng, ms: dict):
             else:                    # drop the instance attribute
                 delattr(obj, attr)
         del eng._commit_nav
+        del nav.islands
 
 
 def window(eng, frames: int = 120) -> dict:

@@ -200,11 +200,15 @@ def test_extend_matches_jax(jax_builds):
     assert got["post_drop_0"]["nav_stats"]["chunks_rebuilt"] > 0
     assert got["post_drop_0"]["nav_stats"]["invalidations"] > 0
     # the commit's split, in the drop's window alone; the timers removed
-    assert set(got["post_drop_0"]["commit_ms"]) == {
-        "commit", "recompute", "portal_relink", "invalidate", "replan"}
+    split = got["post_drop_0"]["commit_ms"]
+    assert set(split) == {"commit", "recompute", "portal_relink",
+                          "invalidate", "replan", "islands", "islands_n"}
+    # the ground layer the replans walk is labelled once, inside them
+    assert split["islands_n"] >= 1
+    assert split["islands"] <= split["replan"] <= split["commit"]
     assert all(got[k]["commit_ms"] == {} for k in want if k != "post_drop_0")
     assert not {"_commit_nav", "_replan_flocks"} & set(vars(teng))
-    assert "_recompute_effective" not in vars(teng.nav)
+    assert not {"_recompute_effective", "islands"} & set(vars(teng.nav))
     assert textend.pt.update_portal_graph.__module__.endswith("nav.portals")
 
 
