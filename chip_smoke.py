@@ -1101,7 +1101,7 @@ def phase_combined(dev):
         """Time the commits that have stamps to apply (the others are
         host-only no-ops and stay unsynchronized)."""
         def run():
-            if not eng.nav._pending_dirty:
+            if not eng.nav.structures_pending():
                 return fn()
             k2 = flowfield_cuda.launches_chunk
             commits.append(dict(s=synced_call(fn),

@@ -44,12 +44,6 @@ from permafrost_engine_tpu_torch.state.convert import (state_from_numpy,
 
 FORMAT_VERSION = 4
 
-# NavService attributes the JAX blob lists by name (restored as it does)
-# and those that are no session state (the config, device and profiler)
-_NAV_LISTED = {"structure_ref", "slot_mirror", "los_mirror", "flow_cache",
-               "los_cache", "flock_chunks", "flock_goal", "_blocker_snap",
-               "terrain_cost", "cost_base", "cfg", "device", "perf"}
-
 
 def engine_tokens(engine) -> dict[str, object]:
     """Engine-side singletons swapped for named tokens in the blob and
@@ -104,7 +98,6 @@ def save_session_bytes(engine, *, script_state=None, extra_tokens=None,
         return graphpickle.picklable(rec, tokens=tokens, by_value=by_value)
 
     eco = engine.economy
-    nav = engine.nav
     host = {
         "frame": engine._frame,
         "sim_state": engine.sim_state,
@@ -123,23 +116,8 @@ def save_session_bytes(engine, *, script_state=None, extra_tokens=None,
         "host_factions": set(engine._host_factions),
         "host_diplomacy": engine._host_diplomacy,
         "structures": dict(engine._structures),
-        # nav: structure overlay + both caches + path tracking
-        "nav_structure_ref": nav.structure_ref,
-        "nav_slot_mirror": nav.slot_mirror,
-        "nav_los_mirror": nav.los_mirror,
-        "nav_cache_order": list(nav.flow_cache.order.items()),
-        "nav_cache_free": list(nav.flow_cache.free),
-        "nav_los_order": list(nav.los_cache.order.items()),
-        "nav_los_free": list(nav.los_cache.free),
-        "nav_flock_chunks": dict(nav.flock_chunks),
-        "nav_flock_goal": dict(nav.flock_goal),
-        # the live-blocker host snapshot feeds field builds; restoring it
-        # exactly keeps a loaded session's replans bit-identical to the
-        # uninterrupted run
-        "nav_blocker_snap": nav._blocker_snap,
-        # the port's additions (see the module docstring)
-        "nav_derived": {k: v for k, v in vars(nav).items()
-                        if k not in _NAV_LISTED},
+        # the nav service's keys: nav_* and nav_derived
+        **engine.nav.host_state(),
         "cadence": {
             "sigs_inflight": _cadence_snapshot(engine),
             "seek_created": dict(engine._seek_created),
@@ -179,7 +157,7 @@ def save_session_bytes(engine, *, script_state=None, extra_tokens=None,
     # graph-pickled part's tokens resolve against
     boot = {
         "cfg": dataclass_dict(engine.cfg),
-        "nav_terrain_cost": nav.terrain_cost,
+        "nav_terrain_cost": engine.nav.terrain_cost,
         "map_data": engine.map_data,
     }
     rest = graphpickle.dumps({"host": host, "script": script_state},
@@ -204,7 +182,6 @@ def load_session_bytes(data: bytes, *, device="cuda", extra_resolve=None,
     `extra_resolve(engine) -> dict[str, object]` supplies additional
     token bindings (a script layer binds its fresh context)."""
     from permafrost_engine_tpu_torch.game.engine import Engine
-    from permafrost_engine_tpu_torch.nav.service import LruSlab
 
     blob = pickle.loads(data)
     version = blob.get("version")
@@ -250,26 +227,7 @@ def load_session_bytes(data: bytes, *, device="cuda", extra_resolve=None,
     engine._structures = dict(host["structures"])
     engine.events = list(host["events"])
 
-    nav = engine.nav
-    nav.structure_ref = np.asarray(host["nav_structure_ref"])
-    nav._recompute_effective()
-    nav.slot_mirror = np.asarray(host["nav_slot_mirror"])
-    nav.los_mirror = np.asarray(host["nav_los_mirror"])
-    cache = LruSlab(cfg.field_slab_slots)
-    for k, v in host["nav_cache_order"]:
-        cache.order[k] = v
-    cache.free = list(host["nav_cache_free"])
-    nav.flow_cache = cache
-    los = LruSlab(cfg.los_slab_slots)
-    for k, v in host["nav_los_order"]:
-        los.order[k] = v
-    los.free = list(host["nav_los_free"])
-    nav.los_cache = los
-    nav.flock_chunks = dict(host["nav_flock_chunks"])
-    nav.flock_goal = dict(host["nav_flock_goal"])
-    snap = host["nav_blocker_snap"]
-    nav._blocker_snap = None if snap is None else np.asarray(snap)
-    vars(nav).update(host["nav_derived"])
+    engine.nav.load_host_state(host)
 
     cad = host["cadence"]
     if cad["sigs_inflight"] is not None:

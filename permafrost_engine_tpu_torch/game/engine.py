@@ -190,8 +190,7 @@ class Engine:
         self.perf = Perf()
         self.nav = NavService(cfg, cost_base, device=self.device,
                               perf=self.perf)
-        self.state.nav.cost_base = torch.from_numpy(
-            np.ascontiguousarray(self.nav.cost_base)).to(self.device)
+        self.state = self.nav.set_terrain(self.state, cost_base)
         self.heights = np.zeros((cfg.field_h, cfg.field_w), np.float32)
         self._tile_height = None
         # device skinning (cfg.skin_joints > 0) starts on the procedural
@@ -277,20 +276,17 @@ class Engine:
                                self.cfg.field_w):
             raise ValueError(f"cost_base shape {cost_base.shape} does not "
                              "match the config")
-        self.nav.set_terrain(cost_base)
-        self.state.nav.cost_base = torch.from_numpy(
-            np.ascontiguousarray(self.nav.cost_base)).to(self.device)
-        self.state = self.nav._push_tables(self.state)
-        self._replan_flocks(None)
+        self.state = self.nav.set_terrain(self.state, cost_base)
+        self._replan_flocks(set(range(self.cfg.num_chunks)))
 
-    def _replan_flocks(self, dirty: set[int] | None,
+    def _replan_flocks(self, dirty: set[int],
                        only_fids: set[int] | None = None) -> set[int]:
         """Re-request paths, in one batched request, for the flocks whose
-        installed path crosses `dirty` chunks (None = every path flock);
-        the through-chunk half of the reference's cache invalidation (ref:
-        fieldcache.h:53-167). A flock whose effective goal is unchanged
-        keeps its members' ring slots; one that became unreachable is
-        dropped (members direct-seek). Returns the flock ids replanned."""
+        installed path crosses `dirty` chunks; the through-chunk half of
+        the reference's cache invalidation (ref: fieldcache.h:53-167). A
+        flock whose effective goal is unchanged keeps its members' ring
+        slots; one that became unreachable is dropped (members
+        direct-seek). Returns the flock ids replanned."""
         st, fetch = self.state, self.perf.fetch
         active = fetch(st.flocks.active)
         if not active.any():
@@ -300,13 +296,11 @@ class Engine:
         pos = fetch(st.ents.pos)
         layers = fetch(st.flocks.layer)
         dests = fetch(st.flocks.dest)
+        crossing = self.nav.flocks_crossing(dirty)
         reqs, members_of = [], {}
         for fid in np.nonzero(active)[0]:
             fid = int(fid)
-            chunks = self.nav.flock_chunks.get(fid)
-            if chunks is None:
-                continue
-            if dirty is not None and not (chunks & dirty):
+            if fid not in crossing:
                 continue
             if only_fids is not None and fid not in only_fids:
                 continue
@@ -378,11 +372,8 @@ class Engine:
 
     def _goal_chunk_hood(self, fid: int) -> set[int]:
         """The flock's goal chunk, where its own crowd parks."""
-        info = self.nav.flock_goal.get(fid)
-        if info is None:
-            return set()
-        _layer, (gr, gc) = info
-        return {self.nav._chunk_idx(gr // FIELD_RES, gc // FIELD_RES)}
+        chunk = self.nav.goal_chunk(fid)
+        return set() if chunk is None else {chunk}
 
     def load_map_data(self, map_data) -> None:
         """Install a parsed PFMAP's compiled nav costs and heights (ref:
@@ -553,7 +544,7 @@ class Engine:
     def _move(self, uids: list[int], goal_xz) -> bool:
         fetch = self.perf.fetch
         self._commit_nav()   # orders see pending structure stamps
-        if self.nav._blocker_snap is None or not self.nav.flock_chunks:
+        if not self.nav.has_blocker_snapshot() or not self.nav.path_flocks():
             self.nav.update_blockers(fetch(self.state.nav.blockers))
         slots = np.array([self.uid_to_slot[u] for u in uids], np.int64)
         layers = fetch(self.state.ents.layer)[slots]
@@ -572,15 +563,18 @@ class Engine:
             self.state, results, plans = self.nav.plan_paths(self.state, reqs)
         if plans:
             with self.perf.scope("order.install"):
-                self.state = self.nav._install_fields_batch(self.state, plans)
+                self.state = self.nav.install_fields(self.state, plans)
         ok_any = False
         for (guids, group, layer, fid), (ok, eff_goal) in zip(groups, results):
             with self.perf.scope("order.ring"):
                 self._apply_move_result(guids, group, goal_xz, layer, fid, ok,
                                         eff_goal)
             if ok:
+                # members in chunks off the planned path (it starts at the
+                # centroid's chunk) get on-demand fields now
                 with self.perf.scope("order.extend"):
-                    self._extend_stray_chunks(fid, all_pos[group])
+                    self.state = self.nav.extend_fields_batch(
+                        self.state, {fid: self.nav.chunks_under(all_pos[group])})
             ok_any |= ok
         return ok_any
 
@@ -697,11 +691,8 @@ class Engine:
         idx = torch.as_tensor(freed, dtype=torch.long, device=self.device)
         fl.active[idx] = False
         fl.global_slot[idx] = -1
+        self.state = self.nav.release_flocks(self.state, freed)
         for f in freed:
-            self.nav.slot_mirror[f, :] = -1
-            self.nav.los_mirror[f, :] = -1
-            self.nav.flock_chunks.pop(f, None)
-            self.nav.flock_goal.pop(f, None)
             self._seek_flocks.pop(f, None)
             self._seek_created.pop(f, None)
             self._field_sigs.pop(f, None)
@@ -709,18 +700,6 @@ class Engine:
         for gs, owner in list(self._gslot_owner.items()):
             if owner in freed:
                 del self._gslot_owner[gs]
-        self.state = self.nav._push_tables(self.state)
-
-    def _extend_stray_chunks(self, fid: int, gpos: np.ndarray) -> None:
-        """Members in chunks off the planned path (it starts at the
-        centroid's chunk) get on-demand fields now."""
-        occ = {self.nav._chunk_idx(
-            int(np.clip(p[1] // NAV_TILE_SIZE, 0, self.cfg.field_h - 1)) // FIELD_RES,
-            int(np.clip(p[0] // NAV_TILE_SIZE, 0, self.cfg.field_w - 1)) // FIELD_RES)
-            for p in gpos}
-        missing = [c for c in occ if self.nav.slot_mirror[fid, c] < 0]
-        if missing:
-            self.state = self.nav.extend_fields(self.state, fid, missing)
 
     def _ring_dests(self, slots: np.ndarray, goal_xz, layer: int) -> np.ndarray:
         """Per-unit packed ring-slot destinations around the goal (ref:
@@ -733,7 +712,7 @@ class Engine:
             self.nav.cost_base[layer]), np.float32)
 
     def _apply_move_result(self, uids, slots, goal_xz, layer, fid, ok,
-                           eff_goal) -> bool:
+                           eff_goal) -> None:
         """Flock setup and motion-start events after a path request."""
         goal = np.asarray(eff_goal if ok else goal_xz, np.float32)
         if ok and len(uids) > 1:
@@ -754,12 +733,15 @@ class Engine:
         fl.layer[fid] = layer
         fl.formation[fid] = 0
         for u in uids:
-            payload = {"uid": int(u)}
-            self.events.append(("motion_start", payload))
-            self.bus.notify(EventType.MOTION_START, payload)
-            self.bus.notify(EventType.MOTION_START, payload, uid=int(u))
-            self.sched.post_event(EventType.MOTION_START, payload)
-        return ok
+            self._emit("motion_start", EventType.MOTION_START, {"uid": int(u)})
+
+    def _emit(self, kind: str, etype: EventType, payload: dict) -> None:
+        """Record one event in ``events``, queue it on the bus for global
+        and the payload entity's handlers, and wake tasks awaiting it."""
+        self.events.append((kind, payload))
+        self.bus.notify(etype, payload)
+        self.bus.notify(etype, payload, uid=payload["uid"])
+        self.sched.post_event(etype, payload)
 
     # -- whole-map field slots and chase fields ---------------------------------------
 
@@ -823,8 +805,8 @@ class Engine:
         fid = self._new_flock()
         faction = int(self.state.ents.faction[int(slots[0])])
         gslot = self._alloc_gslot(fid)
-        self.state = self.nav.build_enemy_seek_field(
-            self.state, faction, layer, gslot, flock_id=fid)
+        self.state = self.nav.build_enemy_seek_fields_batch(
+            self.state, [(faction, layer, gslot, fid)])
         self._seek_flocks[fid] = (faction, layer, gslot)
         self._seek_created[fid] = self._frame
         self._start_field_flock(slots, fid, layer, MoveState.SEEK_ENEMIES,
@@ -1228,7 +1210,7 @@ class Engine:
         its device fetches are ``cadence.fetch`` waits."""
         t0 = time.perf_counter()
         any_war = bool(np.any(self._host_diplomacy == DiplomacyState.WAR))
-        want_blockers = (bool(self.nav.flock_chunks)
+        want_blockers = (bool(self.nav.path_flocks())
                          and self._frame % (2 * self.seek_refresh_period) == 0)
         if not (self._seek_flocks or any_war or want_blockers):
             return
@@ -1276,14 +1258,9 @@ class Engine:
         if docc is not None:
             occ = fetch(docc)
             t0 = self._timed("blk_occ_fetch_ms", t0)
-            wants = {}
-            for fid in list(self.nav.flock_chunks):
-                missing = np.nonzero(occ[fid]
-                                     & (self.nav.slot_mirror[fid] < 0))[0]
-                if missing.size:
-                    wants[fid] = missing
-            if wants:
-                self.state = self.nav.extend_fields_batch(self.state, wants)
+            self.state = self.nav.extend_fields_batch(
+                self.state,
+                {fid: np.nonzero(occ[fid])[0] for fid in self.nav.path_flocks()})
             t0 = self._timed("blk_extend_ms", t0)
         if dblk is None:
             return
@@ -1293,17 +1270,15 @@ class Engine:
             return
         lim = 4 * period
         ok_fids = set()
-        for fid in self.nav.flock_chunks:
+        for fid, crossed in self.nav.flocks_crossing(changed).items():
             if self._frame - self._blocker_replan_frame.get(fid, -lim) < lim:
                 continue
-            eff = (changed & self.nav.flock_chunks[fid]) - \
-                self._goal_chunk_hood(fid)
-            if not eff:
+            # a flip only in its goal chunk, where its own crowd parks, is
+            # no reason to replan
+            if not crossed - self._goal_chunk_hood(fid):
                 continue
-            occ_chunks = (np.nonzero(occ[fid])[0] if occ is not None
-                          else list(self.nav.flock_chunks[fid]))
-            if (self.nav.blockers_change_route(fid, occ_chunks)
-                    != self.nav.flock_plan_detoured.get(fid, False)):
+            # blockers and occupancy come from the same snapshot
+            if self.nav.detour_flipped(fid, np.nonzero(occ[fid])[0]):
                 ok_fids.add(fid)
         t0 = self._timed("blk_route_ms", t0)
         if ok_fids:
@@ -1359,33 +1334,21 @@ class Engine:
         (target, shooter, cookie), deaths, attack starts, expired corpses
         (whose slots are reclaimed)."""
         uid_arr = self._slot_uid
-
-        def emit(kind, etype, u):
-            self.events.append((kind, {"uid": int(u)}))
-            self.bus.notify(etype, {"uid": int(u)})
-            self.bus.notify(etype, {"uid": int(u)}, uid=int(u))
-            self.sched.post_event(etype, {"uid": int(u)})
-
         for u in uid_arr[h["arrived"]]:
-            emit("motion_end", EventType.MOTION_END, u)
+            self._emit("motion_end", EventType.MOTION_END, {"uid": int(u)})
         for u in uid_arr[h["motion_start"]]:
-            emit("motion_start", EventType.MOTION_START, u)
+            self._emit("motion_start", EventType.MOTION_START, {"uid": int(u)})
         for p in np.nonzero(h["proj_hit"] >= 0)[0]:
             shooter = int(h["proj_hit_shooter"][p])
-            payload = {
+            self._emit("projectile_hit", EventType.PROJECTILE_HIT, {
                 "uid": int(uid_arr[int(h["proj_hit"][p])]),
                 "shooter": int(uid_arr[shooter]) if shooter >= 0 else -1,
                 "cookie": float(h["proj_hit_cookie"][p]),
-            }
-            self.events.append(("projectile_hit", payload))
-            self.bus.notify(EventType.PROJECTILE_HIT, payload)
-            self.bus.notify(EventType.PROJECTILE_HIT, payload,
-                            uid=payload["uid"])
-            self.sched.post_event(EventType.PROJECTILE_HIT, payload)
+            })
         for u in uid_arr[h["died"]]:
-            emit("entity_death", EventType.ENTITY_DEATH, u)
+            self._emit("entity_death", EventType.ENTITY_DEATH, {"uid": int(u)})
         for u in uid_arr[h["attack_started"]]:
-            emit("attack_start", EventType.ATTACK_START, u)
+            self._emit("attack_start", EventType.ATTACK_START, {"uid": int(u)})
         expired = uid_arr[h["corpse_expired"]]
         for u in expired:
             u = int(u)

@@ -40,6 +40,7 @@ no compile per shape, so batches run at their own size.
 from __future__ import annotations
 
 from collections import OrderedDict
+from collections.abc import KeysView
 
 import numpy as np
 import torch
@@ -63,10 +64,14 @@ from permafrost_engine_tpu_torch.state.schema import GameState
 
 
 class LruSlab:
-    """LRU key->slot assignment over a fixed number of slab slots."""
+    """LRU key->slot assignment over a fixed number of slab slots, and the
+    host table of the slots each flock points at per chunk (``mirror``,
+    int64[max_flocks, num_chunks], -1 for none): a slot that leaves the
+    slab is scrubbed from every flock's row."""
 
-    def __init__(self, num_slots: int):
+    def __init__(self, num_slots: int, mirror: np.ndarray):
         self.num_slots = num_slots
+        self.mirror = mirror
         self.order: OrderedDict[tuple, int] = OrderedDict()
         self.free = list(range(num_slots - 1, -1, -1))
 
@@ -77,17 +82,30 @@ class LruSlab:
         return slot
 
     def put(self, key) -> tuple[int, tuple | None]:
-        """Assign a slot for key; returns (slot, evicted key or None)."""
+        """Assign a slot for key, evicting the least recent key when full;
+        returns (slot, evicted key or None)."""
         if key in self.order:
             self.order.move_to_end(key)
             return self.order[key], None
         evicted = None
-        if self.free:
-            slot = self.free.pop()
-        else:
-            evicted, slot = self.order.popitem(last=False)
+        if not self.free:
+            evicted = next(iter(self.order))
+            self.drop(evicted)
+        slot = self.free.pop()
         self.order[key] = slot
         return slot, evicted
+
+    def drop(self, key) -> None:
+        """Take key out: its slot is freed and no flock points at it."""
+        slot = self.order.pop(key)
+        self.free.append(slot)
+        self.mirror[self.mirror == slot] = -1
+
+    def clear(self) -> None:
+        """Drop every key, as a fresh slab."""
+        self.order.clear()
+        self.free = list(range(self.num_slots - 1, -1, -1))
+        self.mirror[:] = -1
 
     @property
     def stats(self):
@@ -102,9 +120,18 @@ def tile_of(xz) -> tuple[int, int]:
 class NavService:
     """Host-side navigation orchestrator bound to one engine instance.
 
-    Slab slots and flock rows are int64 on the host (``slot_mirror``,
+    It alone holds a flock's navigation state and writes the device copies
+    of its host state (``state.nav.cost_base``, ``flocks.field_slot``,
+    ``flocks.los_slot``), which equal the host mirrors after every public
+    call. Slab slots and flock rows are int64 on the host (``slot_mirror``,
     ``los_mirror``) and int32 in the device tables, explicitly converted
     when pushed."""
+
+    # attributes a session blob lists by name (as the JAX blob does), and
+    # those that are no session state (the config, device and profiler)
+    _SESSION_LISTED = {"structure_ref", "flow_cache", "los_cache",
+                       "flock_chunks", "flock_goal", "_blocker_snap",
+                       "terrain_cost", "cost_base", "cfg", "device", "perf"}
 
     def __init__(self, cfg: EngineConfig, cost_base: np.ndarray, *, device,
                  perf: Perf | None = None):
@@ -126,10 +153,10 @@ class NavService:
         # parallel.step.sharded_engine on a row-sharded mesh: whole-map
         # seek and surround fields are then integrated over the rank bands
         self.sharded_integrate = None
-        self.flow_cache = LruSlab(cfg.field_slab_slots)
-        self.los_cache = LruSlab(cfg.los_slab_slots)
-        self.slot_mirror = np.full((cfg.max_flocks, cfg.num_chunks), -1, np.int64)
-        self.los_mirror = np.full((cfg.max_flocks, cfg.num_chunks), -1, np.int64)
+        rows = (cfg.max_flocks, cfg.num_chunks)
+        self.flow_cache = LruSlab(cfg.field_slab_slots,
+                                  np.full(rows, -1, np.int64))
+        self.los_cache = LruSlab(cfg.los_slab_slots, np.full(rows, -1, np.int64))
         self.flock_chunks: dict[int, set[int]] = {}
         self.flock_goal: dict[int, tuple[int, tuple[int, int]]] = {}
         self._extend_failed: set[tuple[int, int]] = set()
@@ -142,6 +169,16 @@ class NavService:
                       "retargeted": 0, "invalidations": 0, "blocked_edges": 0,
                       "blocker_replans": 0, "chunks_rebuilt": 0,
                       "chunks_built": 0, "seek_batches": 0, "seek_fields": 0}
+
+    @property
+    def slot_mirror(self) -> np.ndarray:
+        """Host copy of ``flocks.field_slot`` (the flow slab's table)."""
+        return self.flow_cache.mirror
+
+    @property
+    def los_mirror(self) -> np.ndarray:
+        """Host copy of ``flocks.los_slot`` (the LOS slab's table)."""
+        return self.los_cache.mirror
 
     # -- portal graphs and islands -------------------------------------------
 
@@ -168,24 +205,21 @@ class NavService:
         self._edge_cache.pop(layer, None)
         self._goal_span_cache = {k: v for k, v in self._goal_span_cache.items()
                                  if k[0] != layer}
-        for cache, mirror in ((self.flow_cache, self.slot_mirror),
-                              (self.los_cache, self.los_mirror)):
+        for cache in (self.flow_cache, self.los_cache):
             for k in [k for k in cache.order if k[0] == layer]:
-                slot = cache.order.pop(k)
-                cache.free.append(slot)
-                mirror[mirror == slot] = -1
+                cache.drop(k)
 
-    def set_terrain(self, cost_base: np.ndarray) -> None:
-        """Install new compiled terrain costs; every nav derivative rebuilds
-        lazily and every cached field is dropped."""
+    def set_terrain(self, state: GameState, cost_base: np.ndarray) -> GameState:
+        """Install new compiled terrain costs: the effective costs and both
+        flock tables are pushed, every nav derivative rebuilds lazily and
+        every cached field is dropped."""
         self.terrain_cost = cost_base.copy()
         self._recompute_effective()
-        self._graphs.clear()
-        self._islands.clear()
-        self._edge_cache.clear()
         self._extend_failed.clear()
         for layer in range(self.cfg.num_layers):
             self.invalidate_layer(layer)
+        state.nav.cost_base = torch.from_numpy(self.cost_base).to(self.device)
+        return self._push_tables(state)
 
     @staticmethod
     def _grow3(x: np.ndarray) -> np.ndarray:
@@ -279,15 +313,12 @@ class NavService:
         changed = False
         for k in [k for k in self.flow_cache.order
                   if self._chunk_idx(*k[1]) in dirty]:
-            slot = self.flow_cache.order.pop(k)
-            self.flow_cache.free.append(slot)
-            self.slot_mirror[self.slot_mirror == slot] = -1
+            self.flow_cache.drop(k)
             changed = True
             self.stats["invalidations"] += 1
         if self.los_cache.order:
             self.stats["invalidations"] += len(self.los_cache.order)
-            self.los_cache = LruSlab(self.cfg.los_slab_slots)
-            self.los_mirror[:, :] = -1
+            self.los_cache.clear()
             changed = True
         return self._push_tables(state) if changed else state
 
@@ -358,6 +389,59 @@ class NavService:
         plain = pt.astar_portals(graph, start_costs, goal_costs, (gr, gc), dummy)
         return geom(filt) != geom(plain)
 
+    def detour_flipped(self, fid: int, occupied_chunk_idxs) -> bool:
+        """Does the current blocker snapshot change whether the flock's
+        route needs a detour, against what its plan found?"""
+        return (self.blockers_change_route(fid, occupied_chunk_idxs)
+                != self.flock_plan_detoured.get(fid, False))
+
+    def has_blocker_snapshot(self) -> bool:
+        return self._blocker_snap is not None
+
+    # -- the flocks' planned paths ------------------------------------------------
+
+    def path_flocks(self) -> KeysView[int]:
+        """The flocks holding a planned path, in the order their first
+        plans were made (a live view: read it before the next plan)."""
+        return self.flock_chunks.keys()
+
+    def flocks_crossing(self, chunks: set[int]) -> dict[int, set[int]]:
+        """{flock id: the chunks of `chunks` its planned path crosses} for
+        every path flock that crosses one, in ``path_flocks``' order."""
+        crossed = {fid: path & chunks for fid, path in self.flock_chunks.items()}
+        return {fid: c for fid, c in crossed.items() if c}
+
+    def goal_chunk(self, fid: int) -> int | None:
+        """The chunk index of the flock's planned goal (None: unplanned)."""
+        info = self.flock_goal.get(fid)
+        return None if info is None else self._chunk_idx(
+            *self._chunk_of_tile(*info[1]))
+
+    def chunks_under(self, pos: np.ndarray) -> list[int]:
+        """The chunk indices under world positions (x, z), each once, in
+        the iteration order of their set."""
+        cfg = self.cfg
+        return list({self._chunk_idx(
+            int(np.clip(p[1] // NAV_TILE_SIZE, 0, cfg.field_h - 1)) // FIELD_RES,
+            int(np.clip(p[0] // NAV_TILE_SIZE, 0, cfg.field_w - 1)) // FIELD_RES)
+            for p in pos})
+
+    def release_flocks(self, state: GameState, fids: list[int]) -> GameState:
+        """Drop the flocks' navigation state (planned chunks, goal, detour
+        flag, failed extensions) and their slot-table rows, host and device."""
+        for fid in fids:
+            self.flock_chunks.pop(fid, None)
+            self.flock_goal.pop(fid, None)
+            self.flock_plan_detoured.pop(fid, None)
+        self._extend_failed = {k for k in self._extend_failed
+                               if k[0] not in fids}
+        self.slot_mirror[fids, :] = -1
+        self.los_mirror[fids, :] = -1
+        rows = torch.as_tensor(fids, dtype=torch.long, device=self.device)
+        state.flocks.field_slot[rows] = -1
+        state.flocks.los_slot[rows] = -1
+        return state
+
     def _blocked_edges(self, layer: int) -> tuple[frozenset, frozenset]:
         """(blocked portal edges, buried portal pids) for a layer under the
         current blocker snapshot, from host local-island labels (scipy;
@@ -425,17 +509,11 @@ class NavService:
     def _chunk_idx(self, cr: int, cc: int) -> int:
         return cr * self.cfg.chunks_c + cc
 
-    def _chunk_cost(self, layer: int, cr: int, cc: int,
-                    with_blockers: bool = True) -> np.ndarray:
-        """Static chunk cost from the host mirror, optionally with live
-        blockers stamped impassable."""
-        sl = (layer, slice(cr * FIELD_RES, (cr + 1) * FIELD_RES),
-              slice(cc * FIELD_RES, (cc + 1) * FIELD_RES))
-        base = self.cost_base[sl]
-        if not with_blockers:
-            return base
-        blk = self._chunk_blockers(layer, cr, cc)
-        return np.where(blk > 0, np.uint8(COST_IMPASSABLE), base)
+    def _chunk_cost(self, layer: int, cr: int, cc: int) -> np.ndarray:
+        """Static chunk cost from the host mirror (live blockers are
+        stamped by ``_build_chunk_fields``)."""
+        return self.cost_base[layer, cr * FIELD_RES:(cr + 1) * FIELD_RES,
+                              cc * FIELD_RES:(cc + 1) * FIELD_RES]
 
     def _chunk_blockers(self, layer: int, cr: int, cc: int) -> np.ndarray:
         """Live unit blockers for a chunk from the host snapshot."""
@@ -510,13 +588,13 @@ class NavService:
         tile of the start's island (ref: nav.c:1860-1935)."""
         state, results, plans = self.plan_paths(state, reqs)
         if plans:
-            state = self._install_fields_batch(state, plans)
+            state = self.install_fields(state, plans)
         return state, results
 
     def plan_paths(self, state: GameState, reqs):
         """``request_paths`` up to the field install: islands, the start
         and goal integration, portal A*. Returns (state, results, plans),
-        the plans for ``_install_fields_batch``."""
+        the plans for ``install_fields``."""
         cfg = self.cfg
         results: list = [None] * len(reqs)
         live = []
@@ -530,16 +608,12 @@ class NavService:
             gc = min(max(gc, 0), cfg.field_w - 1)
             isl = self.islands(layer)
             start_isl, sr, sc = self._start_island(layer, sr, sc)
-            if start_isl < 0:
-                self.stats["failed"] += 1
-                state = self._clear_flock(state, fid)
-                results[ri] = (False, goal_xz)
-                continue
-            if isl[gr, gc] != start_isl:
+            if start_isl < 0 or isl[gr, gc] != start_isl:
+                # a start on no island has no nearest tile: the request fails
                 rt = self._nearest_on_island(layer, start_isl, (gr, gc))
                 if rt is None:
                     self.stats["failed"] += 1
-                    state = self._clear_flock(state, fid)
+                    state = self.release_flocks(state, [fid])
                     results[ri] = (False, goal_xz)
                     continue
                 gr, gc = rt
@@ -557,10 +631,9 @@ class NavService:
         costs = np.empty((k, FIELD_RES, FIELD_RES), np.uint8)
         seeds = np.zeros((k, FIELD_RES, FIELD_RES), bool)
         for i, (_ri, _fid, layer, (sr, sc), (gr, gc), _g) in enumerate(live):
-            costs[2 * i] = self._chunk_cost(layer, *self._chunk_of_tile(sr, sc),
-                                            with_blockers=False)
-            costs[2 * i + 1] = self._chunk_cost(
-                layer, *self._chunk_of_tile(gr, gc), with_blockers=False)
+            costs[2 * i] = self._chunk_cost(layer, *self._chunk_of_tile(sr, sc))
+            costs[2 * i + 1] = self._chunk_cost(layer,
+                                                *self._chunk_of_tile(gr, gc))
             seeds[2 * i, sr % FIELD_RES, sc % FIELD_RES] = True
             seeds[2 * i + 1, gr % FIELD_RES, gc % FIELD_RES] = True
         integ = self.perf.fetch(self._integrate_host(costs, seeds))
@@ -587,7 +660,7 @@ class NavService:
                                             (gr, gc))
                 if path is None:
                     self.stats["failed"] += 1
-                    state = self._clear_flock(state, fid)
+                    state = self.release_flocks(state, [fid])
                     results[ri] = (False, goal_xz)
                     continue
                 chunk_seq = self._chunk_seq_from_path(graph, path, goal_costs,
@@ -620,9 +693,6 @@ class NavService:
                 seq.append((p.chunk, ("portal", path[i]), ctg[path[i]]))
         return seq
 
-    def extend_fields(self, state: GameState, flock_id: int, chunk_idxs):
-        return self.extend_fields_batch(state, {flock_id: chunk_idxs})
-
     def extend_fields_batch(self, state: GameState, wants: dict):
         """On-demand fields for chunks flocks occupy off their planned path,
         installed with one batched build."""
@@ -630,7 +700,7 @@ class NavService:
                              for fid, ci in wants.items()) if p is not None]
         if not plans:
             return state
-        return self._install_fields_batch(state, plans)
+        return self.install_fields(state, plans)
 
     def _extend_plan(self, flock_id: int, chunk_idxs) -> dict | None:
         """Plan (host A*) the field extension for occupied chunks the
@@ -648,7 +718,7 @@ class NavService:
         g_chunk = self._chunk_of_tile(gr, gc)
         goal_costs_all = self._goal_span_cache.get((layer, gr, gc))
         if goal_costs_all is None:
-            gcost = self._chunk_cost(layer, *g_chunk, with_blockers=False)[None]
+            gcost = self._chunk_cost(layer, *g_chunk)[None]
             seeds = np.zeros((1, FIELD_RES, FIELD_RES), bool)
             seeds[0, gr % FIELD_RES, gc % FIELD_RES] = True
             ginteg = self.perf.fetch(self._integrate_host(gcost, seeds))[0]
@@ -658,9 +728,8 @@ class NavService:
         goal_costs = {p: c for p, c in goal_costs_all.items() if p not in buried}
         new_seq = []
         covered: set[int] = set()
-        for ci in chunk_idxs:
-            if (self.slot_mirror[flock_id, ci] >= 0 or ci in covered
-                    or (flock_id, ci) in self._extend_failed):
+        for ci in chunk_idxs:      # each without a field and not failed
+            if ci in covered:
                 continue
             chunk = (ci // self.cfg.chunks_c, ci % self.cfg.chunks_c)
             if chunk == g_chunk:
@@ -691,7 +760,7 @@ class NavService:
 
     # -- field building ----------------------------------------------------------
 
-    def _install_fields_batch(self, state: GameState, plans: list) -> GameState:
+    def install_fields(self, state: GameState, plans: list) -> GameState:
         """Install flow + LOS fields for many plans: every missing flow
         field in ONE batched integration, every missing LOS map in one
         batched whole-map build, both flock tables pushed once. A chunk the
@@ -743,12 +812,10 @@ class NavService:
                 slot = self.flow_cache.get(key)
                 if slot is None:
                     self.stats["misses"] += 1
-                    slot, evicted = self.flow_cache.put(key)
-                    if evicted is not None:
-                        self.slot_mirror[self.slot_mirror == slot] = -1
-                        stale = flow_pending.pop(slot, None)
-                        if stale is not None:
-                            flow_jobs[stale] = None
+                    slot = self.flow_cache.put(key)[0]
+                    stale = flow_pending.pop(slot, None)   # evicted in batch
+                    if stale is not None:
+                        flow_jobs[stale] = None
                     seeds = np.zeros((FIELD_RES, FIELD_RES), bool)
                     svals = np.zeros((FIELD_RES, FIELD_RES), np.float32)
                     multi = len(specs) > 1
@@ -760,8 +827,7 @@ class NavService:
                             seeds[t[:, 0], t[:, 1]] = True
                             svals[t[:, 0], t[:, 1]] = c if multi else 0.0
                     flow_pending[slot] = len(flow_jobs)
-                    flow_jobs.append(dict(layer=layer, chunk=chunk, seeds=seeds,
-                                          svals=svals, slot=slot))
+                    flow_jobs.append((layer, chunk, slot, seeds, svals))
                 else:
                     self.stats["hits"] += 1
                 self.slot_mirror[flock_id, self._chunk_idx(*chunk)] = slot
@@ -772,37 +838,22 @@ class NavService:
                 los_key = (layer, chunk, ("los", gr, gc))
                 slot = self.los_cache.get(los_key)
                 if slot is None:
-                    slot, evicted = self.los_cache.put(los_key)
-                    if evicted is not None:
-                        self.los_mirror[self.los_mirror == slot] = -1
-                        stale = los_pending.pop(slot, None)
-                        if stale is not None:
-                            los_jobs[stale] = None
+                    slot = self.los_cache.put(los_key)[0]
+                    stale = los_pending.pop(slot, None)    # evicted in batch
+                    if stale is not None:
+                        los_jobs[stale] = None
                     los_pending[slot] = len(los_jobs)
                     los_jobs.append(dict(layer=layer, gr=gr, gc=gc,
                                          chunk=chunk, slot=slot))
                 self.los_mirror[flock_id, self._chunk_idx(*chunk)] = slot
 
-        dev = self.device
         jobs = [j for j in flow_jobs if j is not None]
         if jobs:
-            seeds_np = np.stack([j["seeds"] for j in jobs])
-            blks = np.stack([self._chunk_blockers(j["layer"], *j["chunk"])
-                             for j in jobs])
-            # fields flow around parked units, but a blocker never buries a
-            # seed tile (goal / portal span)
-            costs_np = np.where(
-                (blks > 0) & ~seeds_np, np.uint8(COST_IMPASSABLE),
-                np.stack([self._chunk_cost(j["layer"], *j["chunk"],
-                                           with_blockers=False) for j in jobs]))
-            svals_np = np.stack([j["svals"] for j in jobs])
-            integ = self._integrate_host(costs_np, seeds_np, svals_np)
-            dirs = ff.flow_dirs(integ, torch.from_numpy(costs_np).to(dev))
-            slots = torch.as_tensor([j["slot"] for j in jobs], dtype=torch.long,
-                                    device=dev)
-            state.fields.flow[slots] = dirs
-            self.stats["chunks_built"] += len(jobs)
+            state = self._build_chunk_fields(
+                state, [j[:3] for j in jobs], np.stack([j[3] for j in jobs]),
+                np.stack([j[4] for j in jobs]))
 
+        dev = self.device
         ljobs = [j for j in los_jobs if j is not None]
         if ljobs:
             uniq: list[tuple[int, int, int]] = []
@@ -838,10 +889,10 @@ class NavService:
         the final approach flows toward the formation's footprint and
         around obstacles near it (ref: src/game/formation.c:354). Keys are
         (layer, chunk, ("cells",) + sorted local tiles); the chunks to build
-        are integrated in one batched K2 launch over the chunk's cost with
-        blockers impassable except on seed tiles. Only the flock's row of
-        the slot table is pushed, unless a slab slot was evicted."""
-        cfg, dev = self.cfg, self.device
+        are built by ``_build_chunk_fields``. Only the flock's row of the
+        slot table is pushed, unless a slab slot was evicted (then both
+        tables are)."""
+        cfg = self.cfg
         tiles = np.unique(np.stack([
             np.clip(cells_xy[:, 1] // NAV_TILE_SIZE, 0,
                     cfg.field_h - 1).astype(np.int64),
@@ -862,31 +913,19 @@ class NavService:
             if slot is None:
                 self.stats["misses"] += 1
                 slot, evicted = self.flow_cache.put(key)
-                if evicted is not None:
-                    self.slot_mirror[self.slot_mirror == slot] = -1
-                    evicted_any = True
+                evicted_any |= evicted is not None
                 to_build.append((chunk, ctiles, slot))
             else:
                 self.stats["hits"] += 1
             assignments.append((chunk, slot))
 
         if to_build:
-            seeds_np = np.zeros((len(to_build), FIELD_RES, FIELD_RES), bool)
+            seeds = np.zeros((len(to_build), FIELD_RES, FIELD_RES), bool)
             for i, (_chunk, ctiles, _slot) in enumerate(to_build):
                 for r, c in ctiles:
-                    seeds_np[i, r % FIELD_RES, c % FIELD_RES] = True
-            blks = np.stack([self._chunk_blockers(layer, *ch)
-                             for ch, _t, _s in to_build])
-            costs_np = np.where(
-                (blks > 0) & ~seeds_np, np.uint8(COST_IMPASSABLE),
-                np.stack([self._chunk_cost(layer, *ch, with_blockers=False)
-                          for ch, _t, _s in to_build]))
-            integ = self._integrate_host(costs_np, seeds_np)
-            dirs = ff.flow_dirs(integ, torch.from_numpy(costs_np).to(dev))
-            slots = torch.as_tensor([s for _c, _t, s in to_build],
-                                    dtype=torch.long, device=dev)
-            state.fields.flow[slots] = dirs
-            self.stats["chunks_built"] += len(to_build)
+                    seeds[i, r % FIELD_RES, c % FIELD_RES] = True
+            state = self._build_chunk_fields(
+                state, [(layer, ch, s) for ch, _t, s in to_build], seeds, None)
 
         for chunk, slot in assignments:
             idx = self._chunk_idx(*chunk)
@@ -895,11 +934,31 @@ class NavService:
             # formation's chunks replan it
             self.flock_chunks.setdefault(flock_id, set()).add(idx)
         if evicted_any:
-            state.flocks.field_slot = torch.from_numpy(
-                self.slot_mirror.astype(np.int32)).to(dev)
-        else:
-            state.flocks.field_slot[flock_id] = torch.from_numpy(
-                self.slot_mirror[flock_id].astype(np.int32)).to(dev)
+            return self._push_tables(state)
+        state.flocks.field_slot[flock_id] = torch.from_numpy(
+            self.slot_mirror[flock_id].astype(np.int32)).to(self.device)
+        return state
+
+    def _build_chunk_fields(self, state: GameState, jobs: list,
+                            seeds: np.ndarray, svals: np.ndarray | None
+                            ) -> GameState:
+        """Build chunk flow fields into their slab slots with ONE batched
+        K2 launch and one ``flow_dirs``: `jobs` are (layer, chunk, slot),
+        with their seed masks bool[K, R, R] and seed costs f32[K, R, R]
+        (None: every seed at 0). Fields flow around parked units, but a
+        blocker never buries a seed tile (goal, portal span or cell)."""
+        blks = np.stack([self._chunk_blockers(layer, *chunk)
+                         for layer, chunk, _slot in jobs])
+        costs = np.where(
+            (blks > 0) & ~seeds, np.uint8(COST_IMPASSABLE),
+            np.stack([self._chunk_cost(layer, *chunk)
+                      for layer, chunk, _slot in jobs]))
+        integ = self._integrate_host(costs, seeds, svals)
+        dirs = ff.flow_dirs(integ, torch.from_numpy(costs).to(self.device))
+        slots = torch.as_tensor([slot for _layer, _chunk, slot in jobs],
+                                dtype=torch.long, device=self.device)
+        state.fields.flow[slots] = dirs
+        self.stats["chunks_built"] += len(jobs)
         return state
 
     # -- whole-map fields (enemy-seek / chase) ------------------------------------
@@ -938,13 +997,6 @@ class NavService:
         return self._install_global(
             state, [sp[1] for sp in specs], [sp[2] for sp in specs],
             seeds[:, :-1].reshape(len(specs), h, w), [sp[3] for sp in specs])
-
-    def build_enemy_seek_field(self, state: GameState, faction: int,
-                               layer: int, slot: int,
-                               flock_id: int | None = None) -> GameState:
-        """One whole-map enemy-seek field (a batch of one)."""
-        return self.build_enemy_seek_fields_batch(
-            state, [(faction, layer, slot, flock_id)])
 
     def build_surround_field(self, state: GameState, flock_id: int,
                              target_slotidx: int, layer: int,
@@ -999,14 +1051,43 @@ class NavService:
             self.los_mirror.astype(np.int32)).to(dev)
         return state
 
-    def _clear_flock(self, state: GameState, flock_id: int) -> GameState:
-        self.flock_chunks.pop(flock_id, None)
-        self.flock_goal.pop(flock_id, None)
-        self.flock_plan_detoured.pop(flock_id, None)
-        self._extend_failed = {k for k in self._extend_failed
-                               if k[0] != flock_id}
-        self.slot_mirror[flock_id, :] = -1
-        self.los_mirror[flock_id, :] = -1
-        state.flocks.field_slot[flock_id] = -1
-        state.flocks.los_slot[flock_id] = -1
-        return state
+    # -- sessions -------------------------------------------------------------------
+
+    def host_state(self) -> dict:
+        """The host state a session blob keeps: the ``nav_*`` keys and, as
+        ``nav_derived``, every other attribute (graphs, islands, stats).
+        The blocker snapshot feeds field builds: restored exactly, a
+        loaded session replans bit-identically."""
+        return {
+            "nav_structure_ref": self.structure_ref,
+            "nav_slot_mirror": self.slot_mirror,
+            "nav_los_mirror": self.los_mirror,
+            "nav_cache_order": list(self.flow_cache.order.items()),
+            "nav_cache_free": list(self.flow_cache.free),
+            "nav_los_order": list(self.los_cache.order.items()),
+            "nav_los_free": list(self.los_cache.free),
+            "nav_flock_chunks": dict(self.flock_chunks),
+            "nav_flock_goal": dict(self.flock_goal),
+            "nav_blocker_snap": self._blocker_snap,
+            "nav_derived": {k: v for k, v in vars(self).items()
+                            if k not in self._SESSION_LISTED},
+        }
+
+    def load_host_state(self, d: dict) -> None:
+        """Restore ``host_state``'s dict (the terrain is the constructor's;
+        the device state, flock tables included, comes with the blob)."""
+        self.structure_ref = np.asarray(d["nav_structure_ref"])
+        self._recompute_effective()
+        self.flow_cache = LruSlab(self.cfg.field_slab_slots,
+                                  np.asarray(d["nav_slot_mirror"]))
+        self.flow_cache.order.update(d["nav_cache_order"])
+        self.flow_cache.free = list(d["nav_cache_free"])
+        self.los_cache = LruSlab(self.cfg.los_slab_slots,
+                                 np.asarray(d["nav_los_mirror"]))
+        self.los_cache.order.update(d["nav_los_order"])
+        self.los_cache.free = list(d["nav_los_free"])
+        self.flock_chunks = dict(d["nav_flock_chunks"])
+        self.flock_goal = dict(d["nav_flock_goal"])
+        snap = d["nav_blocker_snap"]
+        self._blocker_snap = None if snap is None else np.asarray(snap)
+        vars(self).update(d["nav_derived"])
