@@ -253,11 +253,15 @@ class Economy:
               to: int | None = None) -> None:
         """``Engine.move`` as the ``Perf`` scope ``economy.order``, counted
         in ``counters["economy.moves"]``; with `to`, the goal is where that
-        entity stands, read inside the scope."""
+        entity stands, read inside the scope: inside the tick from its host
+        copy (no order writes ``pos``), else from the device."""
         e = self.engine
         with e.perf.scope("economy.order"):
             e.counters["economy.moves"] += 1
-            e.move(uids, goal_xz if to is None else tuple(e.pos_of(to)))
+            if to is not None:
+                inside = getattr(self, "_host", None) is not None
+                goal_xz = tuple(self._pos_of(to) if inside else e.pos_of(to))
+            e.move(uids, goal_xz)
 
     def _move_to(self, uid: int, target_uid: int) -> None:
         """Send `uid` to where `target_uid` stands: one ``Engine.move`` of
@@ -464,21 +468,25 @@ class Economy:
     def tick(self) -> None:
         """One economy tick: the ``Perf`` scope ``economy``, with the parts
         ``economy.harvest``, ``economy.build`` and ``economy.automation``;
-        its orders are ``economy.order`` scopes inside them."""
-        perf = self.engine.perf
-        with perf.scope("economy", owner=True):
+        its orders are ``economy.order`` scopes inside them. The orders
+        form one ``Engine.order_batch``, given at the end of the tick (and
+        before a despawn inside it), each flush an ``economy.order``
+        scope."""
+        e = self.engine
+        with e.perf.scope("economy", owner=True):
             # ONE host copy of the entity columns the tick reads, taken at
             # its start (one device sync on the card); per-pair reads would
             # each sync the device and go quadratic at scale. The orders the
             # tick issues change none of the columns it reads.
-            self._host = self.engine.ents_host(*_TICK_COLUMNS)
+            self._host = e.ents_host(*_TICK_COLUMNS)
             try:
-                with perf.scope("economy.harvest"):
-                    self._tick_harvesters()
-                with perf.scope("economy.build"):
-                    self._tick_builders()
-                with perf.scope("economy.automation"):
-                    self._tick_automation()
+                with e.order_batch("economy.order"):
+                    with e.perf.scope("economy.harvest"):
+                        self._tick_harvesters()
+                    with e.perf.scope("economy.build"):
+                        self._tick_builders()
+                    with e.perf.scope("economy.automation"):
+                        self._tick_automation()
                 self._tick_replenish()
             finally:
                 self._host = None

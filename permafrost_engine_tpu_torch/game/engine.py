@@ -15,6 +15,8 @@ fog's ``tile_height``), ``add_faction``, ``set_diplomacy``, ``set_stance``,
 assigned by the auction, cell-seeded arrival fields), ``seek_enemies``,
 ``surround``, ``refresh_seek_fields``, ``set_structure_blocking`` (stamps
 committed by ``_commit_nav`` before each frame and order), ``stop``,
+``order_batch`` (the port's own: moves and stops queued and given together,
+as the economy tick gives its orders),
 ``set_skin_bank``, ``step`` (micro-batched: see below), ``step_scan``,
 ``flush_deltas``, ``pos_of``, ``movestate_of``, and the nav cadence of
 ``_host_systems_tick``: seek-flock and per-(faction, layer) chase fields in
@@ -64,6 +66,7 @@ fields through the row-banded integrator; its host code is unchanged.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import time
@@ -104,7 +107,7 @@ from permafrost_engine_tpu_torch.game.formation import (
 from permafrost_engine_tpu_torch.game.region import RegionSystem
 from permafrost_engine_tpu_torch.game.selection import SelectionSystem
 from permafrost_engine_tpu_torch.game.step import make_tick_scan
-from permafrost_engine_tpu_torch.nav.service import NavService
+from permafrost_engine_tpu_torch.nav.service import FieldJobs, NavService
 from permafrost_engine_tpu_torch.ops.skin import make_procedural_bank
 from permafrost_engine_tpu_torch.render.anim_system import AnimSystem
 from permafrost_engine_tpu_torch.state.schema import (
@@ -174,6 +177,51 @@ def _faction_layer_counts(alive, hp, faction, layer, *, f_n: int, l_n: int):
     return out[:-1].reshape(f_n, l_n)
 
 
+def _last_writes(rows: list, *vals: list):
+    """Per-order host rows and their values, joined in issue order and cut
+    to each row once, with the value its last write gives (the order one
+    by one would leave); returns (rows, [values, ...])."""
+    r = np.concatenate(rows)
+    vs = [np.concatenate(v) for v in vals]
+    _, last = np.unique(r[::-1], return_index=True)
+    if len(last) < len(r):
+        keep = np.sort(len(r) - 1 - last)
+        r, vs = r[keep], [v[keep] for v in vs]
+    return r, vs
+
+
+class _ColumnWriter:
+    """Writes host values into device columns at host rows (each once, an
+    array, or one row's number): a row array copied before is not copied
+    again, and one value for every row is written as a scalar."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._rows: dict[bytes, torch.Tensor] = {}
+
+    def values(self, a: np.ndarray, dtype=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
+                                                            dtype)
+
+    def __call__(self, col: torch.Tensor, rows, vals) -> None:
+        one = isinstance(rows, int)
+        if one:
+            idx = rows
+        elif not len(rows):
+            return
+        else:
+            key = rows.tobytes()
+            idx = self._rows.get(key)
+            if idx is None:
+                idx = self._rows[key] = self.values(rows)
+        if isinstance(vals, np.ndarray):
+            if (vals == vals[0]).all():
+                col[idx] = vals[0].item()
+                return
+            vals = self.values(vals, col.dtype)
+        col[idx] = vals[0] if one else vals
+
+
 class Engine:
     """The port's engine on one device, the card unless the caller asks for
     ``"cpu"``; see the module docstring for what is and is not ported."""
@@ -213,6 +261,10 @@ class Engine:
         self.unit_type: dict[int, tuple[int, int]] = {}
         self._slot_uid = np.zeros(cfg.max_ents, np.int64)
         self._free_flocks = list(range(cfg.max_flocks - 1, -1, -1))
+        # orders queued for the next flush, and the scope an open
+        # order_batch's flushes run in (None: no batch open)
+        self._orders: list = []
+        self._batch_scope: str | None = None
         self.events: list[tuple[str, dict]] = []
         self.bus = EventBus()
         # pf.debug.trace_python / log_python: record script handler
@@ -342,6 +394,7 @@ class Engine:
         portal-graph and island update, field invalidation, replans of the
         flocks whose path crosses a dirty chunk) commits at the next frame
         or order (``_commit_nav``)."""
+        self._flush_orders()
         cur = self._structures.get(uid)
         if blocking and cur is None:
             slot = self.uid_to_slot[uid]
@@ -512,6 +565,7 @@ class Engine:
         return [int(u) for u in uids]
 
     def despawn(self, uid: int) -> None:
+        self._flush_orders()
         if uid in self._structures:
             self.set_structure_blocking(uid, False)
         self.unit_type.pop(uid, None)
@@ -521,12 +575,37 @@ class Engine:
 
     # -- commands -----------------------------------------------------------------
 
+    @contextlib.contextmanager
+    def order_batch(self, scope: str):
+        """Queue the ``move`` and ``stop`` orders given inside, in issue
+        order, and give them together (``_flush_orders``) when it closes:
+        one plan, one field build, one write of each column, leaving the
+        state and the events the same orders one by one would, but for which
+        slab slots hold the fields. Inside it a ``stop`` and a one-unit
+        ``move`` do no device work, and the move returns True; a group's
+        move flushes the batch and goes alone. ``despawn``,
+        ``set_structure_blocking`` and ``teleport`` flush it first, and so
+        does a ``move`` while structure stamps wait, so every order sees
+        the units and the nav map it would see alone. A flush is the
+        ``Perf`` scope `scope` holding the scope ``order.batch``;
+        ``counters["order.batch.orders"]`` counts the orders the flushes
+        carried."""
+        self._batch_scope = scope
+        try:
+            yield
+        finally:
+            try:
+                self._flush_orders()
+            finally:
+                self._batch_scope = None
+
     def stop(self, uids: list[int]) -> None:
-        sl = self._slots_of(uids)
-        e = self.state.ents
-        e.movestate[sl] = int(MoveState.ARRIVED)
-        e.vel[sl] = 0.0
-        e.flock[sl] = -1
+        """Halt the units where they stand: ARRIVED, no velocity, no flock
+        (queued inside an ``order_batch``)."""
+        self._orders.append(
+            (list(uids), self._slot_array(uids), None))
+        if self._batch_scope is None:
+            self._flush_orders()
 
     def move(self, uids: list[int], goal_xz) -> bool:
         """Order units to a destination: one flock per nav layer of the
@@ -534,49 +613,187 @@ class Engine:
         layer's path planned in ONE batched request, fields installed
         (ref: G_Move_SetDest -> N_RequestPath, movement.c:4717, 930).
         Profiled as the scope ``order`` (``core/perf.py``), with its
-        parts ``order.plan``, ``order.install``, ``order.ring`` and
-        ``order.extend`` and its device fetches ``order.fetch``."""
+        parts ``order.plan``, ``order.install``, ``order.extend`` and
+        ``order.ring`` and its device fetches ``order.fetch``; inside an
+        ``order_batch`` the order is queued and those parts run at the
+        flush."""
         if not uids:
             return False
+        queue = self._batch_scope is not None and len(uids) == 1
+        if self._batch_scope is not None and (
+                not queue or self.nav.structures_pending()):
+            # one by one, this move commits pending stamps after the orders
+            # before it have landed; and a group's MOTION_START events go
+            # out by nav layer, which only its flush reads, so it goes alone
+            self._flush_orders()
         with self.perf.scope("order", owner=True):
-            return self._move(uids, goal_xz)
+            self._orders.append(
+                (list(uids), self._slot_array(uids), goal_xz))
+            if len(uids) == 1:
+                # the event goes out when the order is given, as one by one
+                self._emit("motion_start", EventType.MOTION_START,
+                           {"uid": int(uids[0])})
+            if queue:
+                return True
+            return self._flush_orders()
 
-    def _move(self, uids: list[int], goal_xz) -> bool:
+    def _slot_array(self, uids) -> np.ndarray:
+        return np.array([self.uid_to_slot[u] for u in uids], np.int64)
+
+    def _flush_orders(self) -> bool:
+        """Give the queued orders; returns whether a move found a path. An
+        empty queue does nothing; an open batch's flush runs in its
+        scopes."""
+        orders, self._orders = self._orders, []
+        if not orders:
+            return False
+        if self._batch_scope is None:
+            return self._give_orders(orders)
+        self.counters["order.batch.orders"] += len(orders)
+        with self.perf.scope(self._batch_scope), \
+                self.perf.scope("order.batch", owner=True):
+            return self._give_orders(orders)
+
+    def _give_orders(self, orders: list) -> bool:
+        """Give (uids, slots, goal) orders, a stop's goal None, in issue
+        order. The moves take their flocks (one per nav layer) in that
+        order; where the table is too full for the next move, the orders
+        before it are given first, so the reclaim sees the rows they
+        wrote, as one by one. Each run of orders between such cuts is one
+        ``_give_segment``."""
+        ok, cols, start = False, None, 0
+        while start < len(orders):
+            seg = []
+            for uids, slots, goal in orders[start:]:
+                groups = None
+                if goal is not None:
+                    if cols is None:
+                        cols = self._order_columns()
+                    layers = cols[0][slots]
+                    uniq = np.unique(layers)
+                    if seg and len(self._free_flocks) < len(uniq):
+                        break
+                    groups = [([u for u, l in zip(uids, layers) if l == lay],
+                               slots[layers == lay], int(lay), self._new_flock())
+                              for lay in uniq]
+                seg.append((uids, slots, goal, groups))
+            ok |= self._give_segment(seg, None if cols is None else cols[1])
+            start += len(seg)
+        return ok
+
+    def _order_columns(self) -> tuple[np.ndarray, np.ndarray]:
+        """What a move reads before its plan: pending structure stamps
+        committed, the blocker snapshot taken if none is held or no flock
+        holds a path; then the host copies of ``layer`` and ``pos``."""
         fetch = self.perf.fetch
         self._commit_nav()   # orders see pending structure stamps
         if not self.nav.has_blocker_snapshot() or not self.nav.path_flocks():
             self.nav.update_blockers(fetch(self.state.nav.blockers))
-        slots = np.array([self.uid_to_slot[u] for u in uids], np.int64)
-        layers = fetch(self.state.ents.layer)[slots]
-        all_pos = fetch(self.state.ents.pos)
+        return fetch(self.state.ents.layer), fetch(self.state.ents.pos)
 
-        groups, reqs = [], []
-        for layer in np.unique(layers):
-            group = slots[layers == layer]
-            guids = [u for u, l in zip(uids, layers) if l == layer]
-            fid = self._new_flock()
-            start = tuple(all_pos[group].mean(axis=0))
-            groups.append((guids, group, int(layer), fid))
-            reqs.append((fid, start, goal_xz, int(layer)))
+    def _give_segment(self, seg: list, all_pos) -> bool:
+        """Give a segment of orders (uids, slots, goal, groups), each move
+        group (uids, slots, layer, flock id): every group's path in one
+        ``plan_paths``, their fields in one build, then one write of each
+        column. The slab's slots are assigned order by order, as one by
+        one (``NavService.assign_fields``: an order's plans, then each
+        group's stray chunks against the rows they now hold), and the
+        device work waits for the segment's last order with a plan, from
+        where it runs as one by one."""
+        moves = [(goal, groups) for _u, _s, goal, groups in seg if groups]
+        results = []
+        if moves:
+            reqs = [(fid, tuple(all_pos[group].mean(axis=0)), goal, layer)
+                    for goal, groups in moves
+                    for _g, group, layer, fid in groups]
+            with self.perf.scope("order.plan"):
+                self.state, results, plans = self.nav.plan_paths(self.state,
+                                                                 reqs)
+            plan_of = {p["flock_id"]: p for p in plans}
+            by_order = [[plan_of[g[3]] for g in groups if g[3] in plan_of]
+                        for _goal, groups in moves]
+            last = max((k for k, p in enumerate(by_order) if p), default=-1)
+            jobs = FieldJobs()
+            for k, ((_goal, groups), oplans) in enumerate(zip(moves,
+                                                              by_order)):
+                if oplans:
+                    with self.perf.scope("order.install"):
+                        self.nav.assign_fields(oplans, jobs)
+                        if k == last:
+                            self.state = self.nav.build_fields(self.state,
+                                                               jobs)
+                for _g, group, _layer, fid in groups:
+                    if fid not in plan_of:
+                        continue
+                    # members in chunks off the planned path (it starts at
+                    # the centroid's chunk) get on-demand fields now
+                    with self.perf.scope("order.extend"):
+                        self.nav.assign_fields(self.nav.extension_plans(
+                            {fid: self.nav.chunks_under(all_pos[group])}),
+                            jobs)
+                        if k == last:
+                            self.state = self.nav.build_fields(self.state,
+                                                               jobs)
+        with (self.perf.scope("order.ring") if moves
+              else contextlib.nullcontext()):
+            self._write_orders(seg, results)
+        return any(ok for ok, _eff in results)
 
-        with self.perf.scope("order.plan"):
-            self.state, results, plans = self.nav.plan_paths(self.state, reqs)
-        if plans:
-            with self.perf.scope("order.install"):
-                self.state = self.nav.install_fields(self.state, plans)
-        ok_any = False
-        for (guids, group, layer, fid), (ok, eff_goal) in zip(groups, results):
-            with self.perf.scope("order.ring"):
-                self._apply_move_result(guids, group, goal_xz, layer, fid, ok,
-                                        eff_goal)
-            if ok:
-                # members in chunks off the planned path (it starts at the
-                # centroid's chunk) get on-demand fields now
-                with self.perf.scope("order.extend"):
-                    self.state = self.nav.extend_fields_batch(
-                        self.state, {fid: self.nav.chunks_under(all_pos[group])})
-            ok_any |= ok
-        return ok_any
+    def _write_orders(self, seg: list, results: list) -> None:
+        """The rows and flock rows a segment's orders set, as one by one
+        (ref: arrival.h ring fill for a group): each column written once,
+        its rows with the value of the last order to write them; then the
+        MOTION_START events of group orders (a one-unit order's went out
+        when it was given), by nav layer."""
+        res = iter(results)
+        moved, cells_on, dests = [], [], []       # move rows
+        rows, flock, state = [], [], []           # every order's rows
+        stopped, fids, goals, layers, started = [], [], [], [], []
+        for uids, slots, goal, groups in seg:
+            if groups is None:
+                rows.append(slots)
+                flock.append(np.full(len(slots), -1, np.int64))
+                state.append(np.full(len(slots), int(MoveState.ARRIVED)))
+                stopped.append(slots)
+                continue
+            for guids, group, layer, fid in groups:
+                ok, eff = next(res)
+                g = np.asarray(eff if ok else goal, np.float32)
+                on = ok and len(guids) > 1
+                moved.append(group)
+                dests.append(self._ring_dests(group, eff, layer) if on
+                             else np.broadcast_to(g, (len(group), 2)))
+                cells_on.append(np.full(len(group), on))
+                rows.append(group)
+                flock.append(np.full(len(group), fid if ok else -1, np.int64))
+                state.append(np.full(len(group), int(MoveState.MOVING)))
+                fids.append(fid)
+                goals.append(g)
+                layers.append(layer)
+                if len(uids) > 1:
+                    started.extend(guids)
+        e, fl = self.state.ents, self.state.flocks
+        put = _ColumnWriter(self.device)
+        if moved:
+            m_rows, (d, on) = _last_writes(moved, dests, cells_on)
+            d = put.values(np.asarray(d, np.float32))
+            put(e.dest, m_rows, d)
+            put(e.formation_cell, m_rows, d)
+            put(e.has_formation_cell, m_rows, on)
+            fid_rows = fids[0] if len(fids) == 1 else np.asarray(fids)
+            put(fl.active, fid_rows, np.ones(len(fids), bool))
+            put(fl.dest, fid_rows, put.values(np.stack(goals)))
+            put(fl.layer, fid_rows, np.asarray(layers))
+            put(fl.formation, fid_rows, np.zeros(len(fids), np.int64))
+        a_rows, (f, ms) = _last_writes(rows, flock, state)
+        put(e.flock, a_rows, f)
+        put(e.movestate, a_rows, ms)
+        if stopped:
+            s_rows, (zero,) = _last_writes(
+                stopped, [np.zeros(len(s), np.float32) for s in stopped])
+            put(e.vel, s_rows, zero)
+        for u in started:
+            self._emit("motion_start", EventType.MOTION_START, {"uid": int(u)})
 
     def move_in_formation(self, uids: list[int], goal_xz,
                           ftype: FormationType | None = None) -> bool:
@@ -710,30 +927,6 @@ class Engine:
         return np.asarray(assign_ring_slots(
             pos, np.asarray(goal_xz, np.float32), spacing,
             self.nav.cost_base[layer]), np.float32)
-
-    def _apply_move_result(self, uids, slots, goal_xz, layer, fid, ok,
-                           eff_goal) -> None:
-        """Flock setup and motion-start events after a path request."""
-        goal = np.asarray(eff_goal if ok else goal_xz, np.float32)
-        if ok and len(uids) > 1:
-            dests, cells_on = self._ring_dests(slots, eff_goal, layer), True
-        else:
-            dests, cells_on = np.broadcast_to(goal, (len(slots), 2)), False
-        dev = self.device
-        sl = torch.from_numpy(np.asarray(slots, np.int64)).to(dev)
-        d = torch.from_numpy(np.array(dests, np.float32)).to(dev)
-        e, fl = self.state.ents, self.state.flocks
-        e.dest[sl] = d
-        e.formation_cell[sl] = d
-        e.flock[sl] = fid if ok else -1
-        e.movestate[sl] = int(MoveState.MOVING)
-        e.has_formation_cell[sl] = bool(cells_on)
-        fl.active[fid] = True
-        fl.dest[fid] = torch.from_numpy(goal).to(dev)
-        fl.layer[fid] = layer
-        fl.formation[fid] = 0
-        for u in uids:
-            self._emit("motion_start", EventType.MOTION_START, {"uid": int(u)})
 
     def _emit(self, kind: str, etype: EventType, payload: dict) -> None:
         """Record one event in ``events``, queue it on the bus for global
@@ -1375,6 +1568,7 @@ class Engine:
 
     def teleport(self, uid: int, pos_xz: tuple[float, float]) -> None:
         """Place a unit at a position, with no motion in between."""
+        self._flush_orders()
         slot = self.uid_to_slot[uid]
         p = self._to_device(np.asarray(pos_xz, np.float32))
         self.state.ents.pos[slot] = p

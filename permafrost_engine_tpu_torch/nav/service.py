@@ -10,7 +10,9 @@ src/navigation/fieldcache.c):
      missing chunk field in ONE batched K2 launch + ``flow_dirs``
   4. write the fields into LRU slab slots, build the LOS maps of the goals
      (closed form, whole map) and cut them into the LOS slab, and point the
-     flock's chunk->slot tables at both
+     flock's chunk->slot tables at both (``install_fields``: the slots on
+     the host, ``assign_fields``, then the device work, ``build_fields``,
+     which an order batch runs once for many orders)
 
 Field keys are (layer, chunk, seed signature), so flocks sharing a goal or
 portal reuse fields (ref: fieldcache.h:53-167).
@@ -110,6 +112,26 @@ class LruSlab:
     @property
     def stats(self):
         return {"entries": len(self.order), "free": len(self.free)}
+
+
+class FieldJobs:
+    """The fields slab slots were assigned for and wait to be built
+    (``NavService.assign_fields`` fills it, ``build_fields`` empties it):
+    ``flow`` {slot: (layer, chunk, seeds, seed costs)} and ``los`` {slot:
+    (layer, goal row, goal col, chunk)}, in the order the slots were last
+    taken: a slot taken again (its field evicted) holds only its last field;
+    ``rows``: whether flock rows changed since the last build."""
+
+    def __init__(self):
+        self.flow: dict[int, tuple] = {}
+        self.los: dict[int, tuple] = {}
+        self.rows = False
+
+    def take(self) -> tuple[dict, dict, bool]:
+        """(flow, los, rows), leaving the jobs empty."""
+        out = self.flow, self.los, self.rows
+        self.__init__()
+        return out
 
 
 def tile_of(xz) -> tuple[int, int]:
@@ -696,11 +718,17 @@ class NavService:
     def extend_fields_batch(self, state: GameState, wants: dict):
         """On-demand fields for chunks flocks occupy off their planned path,
         installed with one batched build."""
-        plans = [p for p in (self._extend_plan(fid, ci)
-                             for fid, ci in wants.items()) if p is not None]
+        plans = self.extension_plans(wants)
         if not plans:
             return state
         return self.install_fields(state, plans)
+
+    def extension_plans(self, wants: dict) -> list:
+        """``extend_fields_batch`` up to the install: the plans (host A*)
+        for the chunks `wants` ({flock id: chunk indices}) names that its
+        flocks have no field at and no failed extension."""
+        return [p for p in (self._extend_plan(fid, ci)
+                            for fid, ci in wants.items()) if p is not None]
 
     def _extend_plan(self, flock_id: int, chunk_idxs) -> dict | None:
         """Plan (host A*) the field extension for occupied chunks the
@@ -761,18 +789,22 @@ class NavService:
     # -- field building ----------------------------------------------------------
 
     def install_fields(self, state: GameState, plans: list) -> GameState:
-        """Install flow + LOS fields for many plans: every missing flow
-        field in ONE batched integration, every missing LOS map in one
-        batched whole-map build, both flock tables pushed once. A chunk the
-        path visits once gets a plain field (shareable key); a chunk visited
-        twice gets a union field whose seeds carry their remaining cost.
-        Extend plans add chunks without dropping the flock's rows."""
-        cfg = self.cfg
-        flow_jobs: list = []
-        flow_pending: dict[int, int] = {}
-        los_jobs: list = []
-        los_pending: dict[int, int] = {}
+        """Install flow + LOS fields for many plans: ``assign_fields`` then
+        ``build_fields``."""
+        jobs = FieldJobs()
+        self.assign_fields(plans, jobs)
+        return self.build_fields(state, jobs)
 
+    def assign_fields(self, plans: list, jobs: FieldJobs) -> None:
+        """The host half of ``install_fields``: give every chunk of the
+        plans its flow and LOS slab slots and point the flocks' rows of the
+        host tables at them, adding each missing field to `jobs`. A chunk
+        the path visits once gets a plain field (shareable key); a chunk
+        visited twice gets a union field whose seeds carry their remaining
+        cost. Extend plans add chunks without dropping the flock's rows.
+        Calls in turn leave the host state one ``install_fields`` of each
+        would; a slot taken from a field still waiting in `jobs` drops that
+        job."""
         for plan in plans:
             flock_id = plan["flock_id"]
             layer = plan["layer"]
@@ -813,9 +845,6 @@ class NavService:
                 if slot is None:
                     self.stats["misses"] += 1
                     slot = self.flow_cache.put(key)[0]
-                    stale = flow_pending.pop(slot, None)   # evicted in batch
-                    if stale is not None:
-                        flow_jobs[stale] = None
                     seeds = np.zeros((FIELD_RES, FIELD_RES), bool)
                     svals = np.zeros((FIELD_RES, FIELD_RES), np.float32)
                     multi = len(specs) > 1
@@ -826,8 +855,8 @@ class NavService:
                             t = graph.portals[sig[1]].span_tiles()
                             seeds[t[:, 0], t[:, 1]] = True
                             svals[t[:, 0], t[:, 1]] = c if multi else 0.0
-                    flow_pending[slot] = len(flow_jobs)
-                    flow_jobs.append((layer, chunk, slot, seeds, svals))
+                    jobs.flow.pop(slot, None)      # evicted while waiting
+                    jobs.flow[slot] = (layer, chunk, seeds, svals)
                 else:
                     self.stats["hits"] += 1
                 self.slot_mirror[flock_id, self._chunk_idx(*chunk)] = slot
@@ -839,30 +868,28 @@ class NavService:
                 slot = self.los_cache.get(los_key)
                 if slot is None:
                     slot = self.los_cache.put(los_key)[0]
-                    stale = los_pending.pop(slot, None)    # evicted in batch
-                    if stale is not None:
-                        los_jobs[stale] = None
-                    los_pending[slot] = len(los_jobs)
-                    los_jobs.append(dict(layer=layer, gr=gr, gc=gc,
-                                         chunk=chunk, slot=slot))
+                    jobs.los.pop(slot, None)       # evicted while waiting
+                    jobs.los[slot] = (layer, gr, gc, chunk)
                 self.los_mirror[flock_id, self._chunk_idx(*chunk)] = slot
+            jobs.rows = True
 
-        jobs = [j for j in flow_jobs if j is not None]
-        if jobs:
+    def build_fields(self, state: GameState, jobs: FieldJobs) -> GameState:
+        """The device half of ``install_fields``: every missing flow field
+        of `jobs` in ONE batched integration, every missing LOS map in one
+        batched whole-map build over the unique goals, both flock tables
+        pushed once (only when rows were assigned since the last build).
+        Empties `jobs`."""
+        flow, los, rows = jobs.take()
+        if flow:
+            items = list(flow.items())
             state = self._build_chunk_fields(
-                state, [j[:3] for j in jobs], np.stack([j[3] for j in jobs]),
-                np.stack([j[4] for j in jobs]))
-
-        dev = self.device
-        ljobs = [j for j in los_jobs if j is not None]
-        if ljobs:
-            uniq: list[tuple[int, int, int]] = []
-            uidx: dict[tuple[int, int, int], int] = {}
-            for j in ljobs:
-                key = (j["layer"], j["gr"], j["gc"])
-                if key not in uidx:
-                    uidx[key] = len(uniq)
-                    uniq.append(key)
+                state, [(j[0], j[1], slot) for slot, j in items],
+                np.stack([j[2] for _s, j in items]),
+                np.stack([j[3] for _s, j in items]))
+        if los:
+            cfg, dev = self.cfg, self.device
+            uniq = list(dict.fromkeys(j[:3] for j in los.values()))
+            uidx = {u: i for i, u in enumerate(uniq)}
             cr, cc = cfg.chunks_r, cfg.chunks_c
             lay = torch.as_tensor([u[0] for u in uniq], dtype=torch.long,
                                   device=dev)
@@ -873,14 +900,11 @@ class NavService:
                      .permute(0, 1, 3, 2, 4)
                      .reshape(len(uniq) * cr * cc, FIELD_RES, FIELD_RES))
             flat = torch.as_tensor(
-                [uidx[(j["layer"], j["gr"], j["gc"])] * cr * cc
-                 + j["chunk"][0] * cc + j["chunk"][1] for j in ljobs],
-                dtype=torch.long, device=dev)
-            slots = torch.as_tensor([j["slot"] for j in ljobs], dtype=torch.long,
-                                    device=dev)
+                [uidx[j[:3]] * cr * cc + j[3][0] * cc + j[3][1]
+                 for j in los.values()], dtype=torch.long, device=dev)
+            slots = torch.as_tensor(list(los), dtype=torch.long, device=dev)
             state.fields.los[slots] = tiles[flat]
-
-        return self._push_tables(state)
+        return self._push_tables(state) if rows else state
 
     def install_formation_field(self, state: GameState, flock_id: int,
                                 layer: int, cells_xy: np.ndarray) -> GameState:

@@ -201,8 +201,9 @@ def test_prev_frame_perfstats_names_the_frame():
 def test_economy_scopes_and_flock_counters():
     """A small economy run: every economy tick is the scope ``economy``
     with its three parts, each order it gives an ``economy.order`` (counted
-    as ``economy.moves`` or ``economy.stops``), a founded building's
-    commit ``nav.commit`` with its ``nav.replan``; a full flock table
+    as ``economy.moves`` or ``economy.stops``), and so is each flush of its
+    batch (``order.batch``, carrying ``order.batch.orders``); a founded
+    building's commit ``nav.commit`` with its ``nav.replan``; a full flock table
     reclaims (``flocks.reclaims``) and keeps its high-water mark
     (``flocks.peak``)."""
     from permafrost_engine_tpu_torch.core.config import EntityFlags
@@ -248,8 +249,13 @@ def test_economy_scopes_and_flock_counters():
         assert _delta(c, c0, f"economy.{part}.n") == ticks
     assert _delta(c, c0, "economy.moves") >= 4
     assert _delta(c, c0, "economy.stops") >= 4
-    assert _delta(c, c0, "economy.order.n") == _delta(
-        c, c0, "economy.moves") + _delta(c, c0, "economy.stops")
+    # the orders of a tick are one batch: each order, and each flush of it,
+    # is one economy.order
+    orders = _delta(c, c0, "economy.moves") + _delta(c, c0, "economy.stops")
+    flushes = _delta(c, c0, "order.batch.n")
+    assert 1 <= flushes <= ticks
+    assert _delta(c, c0, "economy.order.n") == orders + flushes
+    assert _delta(c, c0, "order.batch.orders") == orders
     assert _delta(c, c0, "economy.ms") > _delta(c, c0, "economy.order.ms")
     assert _delta(c, c0, "nav.commit.n") == 1
     assert _delta(c, c0, "nav.replan.n") == 1
